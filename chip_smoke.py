@@ -6,14 +6,23 @@
 Phases (each prints its lines; any failure raises and exits non-zero):
 
   1. device  require a CUDA card; print its name and power limit;
-  2. build   compile every CUDA kernel of the main path from csrc/;
+  2. build   compile every CUDA kernel of the main path from csrc/, one
+             nvcc process per source, all started together;
   3. kernel  hold each kernel against its plain PyTorch version on the
-             card (bit-for-bit for the Ozaki pair kernel) at the shapes the
-             main path gives it, and time kernel, plain version and the
-             f64 torch.matmul of the same product with CUDA events;
+             card, bit for bit, at the shapes the main path gives it and
+             at ragged, wild-scale, strided, NaN and adversarial inputs
+             (slices of +-256 units, where the in-chunk sums reach the
+             2^24 bound of their exactness argument, and of odd units,
+             where they come within 2^17 of it with their low bits set);
+             show that one hpmm
+             is three kernel launches; time kernel, plain version, whole
+             hpmm and the f64 torch.matmul of the same product with CUDA
+             events (the kernels inside a replayed CUDA graph, so that the
+             host's launch cost is not what is measured), and compute each
+             kernel's bound from the shapes;
   4. slice   solve the SDPLIB gpp500-class instance (gpp_sdpa(n=500,
              seed=0), m = 501, one 500 x 500 block) with kkt_hp="on"
-             through solve_sdpa_file, count the kernel's launches in that
+             through solve_sdpa_file, count the kernels' launches in that
              run, and hold the result to the JAX package's reference;
              then hold a small solve on the card to the same solve on the
              host.
@@ -41,6 +50,11 @@ REF_D_OBJ = -1940.4850971721783
 ITER_TOL = 2
 GMAX = 5
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
+PEAK_BYTES_S = 3.35e12    # HBM3
+PEAK_BF16_FLOPS = 989e12  # tensor cores, bf16 in, f32 accumulate
+PEAK_F32_FLOPS = 67e12    # CUDA cores
+
 
 def _smi_line() -> str:
     out = subprocess.run(
@@ -66,9 +80,127 @@ def _time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _kernel_phase(hpmm, dev):
-    """Kernel vs plain version on the card; returns (max_abs_err,
-    timings at the pair-product shape)."""
+def _device_ms(fn, reps: int = 20) -> float:
+    """Device time per call: reps calls captured in one CUDA graph and
+    replayed between two events, so the host's launch cost (tens of
+    microseconds a call, more than these kernels take) stays out."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _same(x, y) -> bool:
+    """Bitwise equality of two tensors, NaN equal to NaN (a NaN's payload
+    is not part of the contract)."""
+    import torch
+
+    if x.shape != y.shape or x.dtype != y.dtype:
+        return False
+    if not x.dtype.is_floating_point:
+        return torch.equal(x, y)
+    nx, ny = x.isnan(), y.isnan()
+    return torch.equal(nx, ny) and torch.equal(x.masked_fill(nx, 0), y.masked_fill(ny, 0))
+
+
+def _require(ok: bool, what: str):
+    if not ok:
+        raise AssertionError(what)
+
+
+def _pairs_bound_ms(m, n, kp, gmax):
+    """(bound ms, which peak) of one pair accumulation: slices read once,
+    (Ch, Cl) written once, against the bf16 MMAs of every pair."""
+    q, pairs = gmax + 1, (gmax + 1) * (gmax + 2) // 2
+    t_bytes = (2 * q * (m + n) * kp + 2 * 4 * m * n) / PEAK_BYTES_S
+    t_ops = 2.0 * pairs * m * n * kp / PEAK_BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _slice_bound_ms(rows, k, kp, gmax):
+    """(bound ms, which peak) of slicing one f64 operand: 8 bytes read per
+    element, 2q written per padded element plus the exponents; per slice a
+    multiply, a trunc, a multiply and the 7-operation two_sum remainder."""
+    q = gmax + 1
+    t_bytes = (8 * rows * k + 2 * q * rows * kp + 4 * rows) / PEAK_BYTES_S
+    t_ops = (10.0 * q + 4.0) * rows * kp / PEAK_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _max_abs_diff(x, y) -> float:
+    """max |x - y| over the entries where both are finite."""
+    import torch
+
+    x, y = x.to(torch.float64), y.to(torch.float64)
+    finite = torch.isfinite(x) & torch.isfinite(y)
+    return float((x - y)[finite].abs().max()) if bool(finite.any()) else 0.0
+
+
+def _check_slice(hpmm, name, x, axis, gmax=GMAX, kpad=None):
+    """K1s against slice_ref on one operand; returns the kernel's output
+    and max |diff| over slices and exponents."""
+    import torch
+
+    before = hpmm.SLICE_LAUNCHES
+    sl, e = hpmm.hpmm_slice(x, axis, gmax, kpad)
+    _require(hpmm.SLICE_LAUNCHES == before + 1, f"hpmm_slice did not count its launch at {name}")
+    sl_r, e_r = hpmm.slice_ref(x, axis, gmax, kpad)
+    torch.cuda.synchronize()
+    _require(_same(sl, sl_r), f"hpmm_slice: slices differ from slice_ref at {name}")
+    _require(torch.equal(e, e_r), f"hpmm_slice: exponents differ from slice_ref at {name}")
+    return sl, e, max(_max_abs_diff(sl, sl_r), _max_abs_diff(e, e_r))
+
+
+def _check_pairs(hpmm, name, a_sl, b_sl, gmax=GMAX):
+    """K1 against matmul_sliced_ref on given slices; returns max |diff|."""
+    import torch
+
+    before = hpmm.KERNEL_LAUNCHES
+    ch_k, cl_k = hpmm.hpmm_pairs(a_sl, b_sl, gmax)
+    _require(hpmm.KERNEL_LAUNCHES == before + 1, f"hpmm_pairs did not count its launch at {name}")
+    ch_r, cl_r = hpmm.matmul_sliced_ref(a_sl, b_sl, gmax)
+    torch.cuda.synchronize()
+    ok = _same(ch_k, ch_r) and _same(cl_k, cl_r)
+    if not ok:
+        bad = (ch_k != ch_r) | (cl_k != cl_r)
+        i, j = (int(v) for v in bad.nonzero()[0])
+        raise AssertionError(
+            f"hpmm_pairs differs from matmul_sliced_ref at {name}: {int(bad.sum())} of "
+            f"{bad.numel()} entries, first ({i}, {j}): kernel ({float(ch_k[i, j])!r}, "
+            f"{float(cl_k[i, j])!r}) plain ({float(ch_r[i, j])!r}, {float(cl_r[i, j])!r})")
+    return max(_max_abs_diff(ch_k, ch_r), _max_abs_diff(cl_k, cl_r))
+
+
+def _count_device_kernels(fn):
+    """Names of the device kernels one call of fn launches (profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+
+
+def _kernel_phase(hpmm, hpmm_cases, dev):
+    """Both kernels against their plain versions on the card; returns the
+    worst max |diff| of K1 and of K1s, and the timings and bounds."""
     import numpy as np
     import torch
 
@@ -82,46 +214,211 @@ def _kernel_phase(hpmm, dev):
             b *= np.logspace(25, -25, n)[None, :]
         return (torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev))
 
+    # The two products of the slice's Schur assembly (r = 1, m = 501,
+    # n = 500), with the views and strides ops/schur.py passes:
+    #   FU = hpmm(Fs.reshape(r * m, n), U[0])   and
+    #   T  = hpmm(FU[j], Fs[k].T): B is a [500, 501] transposed view
+    fs = torch.as_tensor(rng.standard_normal((1, 501, 500)), device=dev)
+    u = torch.as_tensor(rng.standard_normal((1, 500, 500)), device=dev)
+    fu = torch.as_tensor(rng.standard_normal((1, 501, 500)), device=dev)
     cases = [
-        # the two products of the slice's Schur assembly (m = 501, n = 500):
-        # FU = Fs @ U and the pair product FU @ Fs^T
-        ("FU [501,500]@[500,500]", *operands(501, 500, 500)),
-        ("pair [501,500]@[500,501]", *operands(501, 500, 501)),
+        ("FU [501,500]@[500,500]", fs.reshape(501, 500), u[0]),
+        ("pair [501,500]@[500,501]", fu[0], fs[0].T),
         ("ragged [37,300]@[300,45]", *operands(37, 300, 45)),
         ("wild [96,96]@[96,96]", *operands(96, 96, 96, wild=True)),
     ]
-    worst = 0.0
-    timing = None
+    _require(not cases[1][2].is_contiguous(), "the pair case's B is not a transposed view")
+    worst = worst_slice = 0.0
+    times = {}
     for name, a, b in cases:
-        a_sl, b_sl, _, _ = hpmm.slice_operands(a, b, GMAX)
-        ch_k, cl_k = hpmm.hpmm_pairs(a_sl, b_sl, GMAX)
-        ch_r, cl_r = hpmm.matmul_sliced_ref(a_sl, b_sl, GMAX)
-        torch.cuda.synchronize()
-        err = max(float((ch_k - ch_r).abs().max()), float((cl_k - cl_r).abs().max()))
-        equal = torch.equal(ch_k, ch_r) and torch.equal(cl_k, cl_r)
-        # the whole hpmm against f64 (hpmm keeps ~48 bits: 2^-45 relative)
+        a_sl, ea, err_a = _check_slice(hpmm, name + " A", a, 1)
+        b_sl, eb, err_b = _check_slice(hpmm, name + " B", b, 0)
+        worst_slice = max(worst_slice, err_a, err_b)
+        err = _check_pairs(hpmm, name, a_sl, b_sl)
+        # the f64-epilogue form against the two-step form, bitwise
+        ch, cl = hpmm.hpmm_pairs(a_sl, b_sl, GMAX)
+        two_step = ((ch.to(torch.float64) + cl.to(torch.float64))
+                    * hpmm._pow2(ea, torch.float64) * hpmm._pow2(eb, torch.float64))
+        fused = hpmm.hpmm_pairs(a_sl, b_sl, GMAX, ea, eb, out_f64=True)
         c = hpmm.hpmm(a, b, GMAX)
+        _require(_same(fused, two_step) and _same(c, two_step),
+                 f"the f64 epilogue differs from the two-step form at {name}")
+        sh, sl_ = hpmm.hpmm_pairs(a_sl, b_sl, GMAX, ea, eb)
+        s = hpmm._pow2(ea, torch.float32) * hpmm._pow2(eb, torch.float32)
+        _require(_same(sh, ch * s) and _same(sl_, cl * s),
+                 f"the f32-scaled epilogue differs from the two-step form at {name}")
+        # the whole hpmm against f64 (hpmm keeps ~48 bits: 2^-45 relative)
         ref = a @ b
         rel = float((c - ref).abs().max() / ref.abs().max())
         print(f"[kernel] {name}: slices {tuple(a_sl.shape)} x {tuple(b_sl.shape)}; "
-              f"kernel == plain bitwise: {equal}; max|diff| {err}; "
-              f"hpmm rel err vs f64 matmul {rel:.3e}", flush=True)
-        if not equal:
-            raise AssertionError(f"hpmm_pairs differs from matmul_sliced_ref at {name}")
-        if not rel < 1e-12:
-            raise AssertionError(f"hpmm relative error {rel} at {name}")
+              f"K1s == slice_ref, K1 == matmul_sliced_ref, f64 epilogue == two-step: "
+              f"bitwise; max|diff| {err}; hpmm rel err vs f64 matmul {rel:.3e}", flush=True)
+        _require(rel < 1e-12, f"hpmm relative error {rel} at {name}")
         worst = max(worst, err)
         if name.startswith(("FU", "pair")):
-            t_k = _time_ms(lambda: hpmm.hpmm_pairs(a_sl, b_sl, GMAX))
-            t_p = _time_ms(lambda: hpmm.matmul_sliced_ref(a_sl, b_sl, GMAX))
-            t_f = _time_ms(lambda: a @ b)
-            t_h = _time_ms(lambda: hpmm.hpmm(a, b, GMAX))
-            print(f"[kernel] {name} times (ms, CUDA events, 20 reps): "
-                  f"kernel {t_k:.4f}  plain {t_p:.4f}  f64 torch.matmul {t_f:.4f}  "
-                  f"whole hpmm {t_h:.4f}", flush=True)
-            if name.startswith("pair"):
-                timing = (t_k, t_p, t_f)
-    return worst, timing
+            key = name.split()[0]
+            m, k = a.shape
+            n = b.shape[1]
+            t = {
+                # device times (graph replay): the kernels and the library call
+                "pairs": _device_ms(lambda: hpmm.hpmm_pairs(a_sl, b_sl, GMAX)),
+                "pairs_f64": _device_ms(
+                    lambda: hpmm.hpmm_pairs(a_sl, b_sl, GMAX, ea, eb, out_f64=True)),
+                "slice_a": _device_ms(lambda: hpmm.hpmm_slice(a, 1, GMAX)),
+                "slice_b": _device_ms(lambda: hpmm.hpmm_slice(b, 0, GMAX)),
+                "matmul": _device_ms(lambda: a @ b),
+                "hpmm_device": _device_ms(lambda: hpmm.hpmm(a, b, GMAX)),
+                # eager times (host launch cost included)
+                "pairs_plain": _time_ms(lambda: hpmm.matmul_sliced_ref(a_sl, b_sl, GMAX)),
+                "slice_a_plain": _time_ms(lambda: hpmm.slice_ref(a, 1, GMAX)),
+                "slice_b_plain": _time_ms(lambda: hpmm.slice_ref(b, 0, GMAX)),
+                "pairs_eager": _time_ms(lambda: hpmm.hpmm_pairs(a_sl, b_sl, GMAX)),
+                "slice_eager": _time_ms(lambda: hpmm.hpmm_slice(a, 1, GMAX)),
+                "matmul_eager": _time_ms(lambda: a @ b),
+                "hpmm": _time_ms(lambda: hpmm.hpmm(a, b, GMAX)),
+                "pairs_bound": _pairs_bound_ms(m, n, a_sl.shape[2], GMAX),
+                "slice_a_bound": _slice_bound_ms(m, k, a_sl.shape[2], GMAX),
+                "slice_b_bound": _slice_bound_ms(n, k, a_sl.shape[2], GMAX),
+            }
+            times[key] = t
+            print(f"[kernel] {name} device ms (CUDA events around a graph of 20 calls): "
+                  f"K1 {t['pairs']:.4f} (f64 epilogue {t['pairs_f64']:.4f}, bound "
+                  f"{t['pairs_bound'][0]:.5f} by {t['pairs_bound'][1]})  K1s A {t['slice_a']:.4f} "
+                  f"B {t['slice_b']:.4f} (bound A "
+                  f"{t['slice_a_bound'][0]:.5f} B {t['slice_b_bound'][0]:.5f} by "
+                  f"{t['slice_a_bound'][1]})  f64 torch.matmul {t['matmul']:.4f}  "
+                  f"whole hpmm {t['hpmm_device']:.4f}", flush=True)
+            print(f"[kernel] {name} eager ms per call, host launch cost included (20 calls): "
+                  f"K1 {t['pairs_eager']:.4f} (plain {t['pairs_plain']:.4f})  K1s A "
+                  f"{t['slice_eager']:.4f} (plain A {t['slice_a_plain']:.4f} B "
+                  f"{t['slice_b_plain']:.4f})  f64 torch.matmul {t['matmul_eager']:.4f}  "
+                  f"whole hpmm {t['hpmm']:.4f}", flush=True)
+
+    # -- other gmax, layouts and strides, at the ragged shape --------------
+    a, b = operands(37, 300, 45)
+    for gmax in (0, 3, 7):
+        a_sl, _, err_a = _check_slice(hpmm, f"gmax {gmax} A", a, 1, gmax)
+        b_sl, _, err_b = _check_slice(hpmm, f"gmax {gmax} B", b, 0, gmax)
+        worst_slice = max(worst_slice, err_a, err_b)
+        worst = max(worst, _check_pairs(hpmm, f"gmax {gmax}", a_sl, b_sl, gmax))
+    a_sl, _ = hpmm.hpmm_slice(a, 1)
+    b_sl, _ = hpmm.hpmm_slice(b, 0)
+    _require(b_sl.stride(1) == 1, "K1s does not hand K1 a column-major (K-contiguous) B")
+    layouts = {
+        "a strided row view of A": (hpmm.hpmm_slice(torch.cat([a, a]), 1)[0][:, ::2], b_sl),
+        "more slices than gmax uses": (hpmm.hpmm_slice(a, 1, 7)[0], hpmm.hpmm_slice(b, 0, 7)[0]),
+    }
+    for name, (x_sl, y_sl) in layouts.items():
+        worst = max(worst, _check_pairs(hpmm, name, x_sl, y_sl))
+    # what the kernel cannot stage is refused, not computed another way
+    refused = {
+        "an N-contiguous B": (a_sl, b_sl.contiguous()),
+        "an unaligned A": (torch.cat([a_sl[:, :, :1], a_sl], 2)[:, :, 1:], b_sl),
+    }
+    for name, (x_sl, y_sl) in refused.items():
+        before = hpmm.KERNEL_LAUNCHES
+        try:
+            hpmm.hpmm_pairs(x_sl, y_sl, GMAX)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"hpmm_pairs took {name}")
+        _require(hpmm.KERNEL_LAUNCHES == before, f"hpmm_pairs counted a launch at {name}")
+    big = torch.as_tensor(rng.standard_normal((80, 90)), device=dev)
+    views = {
+        "a transposed view": big.T,
+        "a strided row view": big[::2],
+        "a strided column view": big[:, ::3],
+        "a K above one tile": torch.as_tensor(rng.standard_normal((20, 1300)), device=dev),
+    }
+    for name, x in views.items():
+        for axis in (0, 1):
+            worst_slice = max(
+                worst_slice,
+                _check_slice(hpmm, f"{name}, axis {axis}", x, axis)[2],
+                _check_slice(hpmm, f"{name} as a double-single pair, axis {axis}",
+                             hpmm.dd.from_f64(x), axis)[2])
+    worst_slice = max(worst_slice, _check_slice(hpmm, "a wider K pad", a, 1, kpad=768)[2])
+    nan_a = a.clone()
+    nan_a[3, 4] = float("nan")
+    nan_a[7, :] = 0.0
+    nan_sl, _, err_a = _check_slice(hpmm, "a NaN row and a zero row", nan_a, 1)
+    err_b = _check_slice(hpmm, "a NaN column and a zero column", nan_a.T, 0)[2]
+    worst_slice = max(worst_slice, err_a, err_b)
+    worst = max(worst, _check_pairs(hpmm, "a NaN row", nan_sl, b_sl))
+    c = hpmm.hpmm(nan_a, b)
+    _require(bool(c[3].isnan().all()) and bool(torch.isfinite(c[[0, 7]]).all()),
+             "NaN did not stay in its row")
+    print(f"[kernel] gmax 0/3/7, a column-major B, {len(layouts)} more slice layouts, "
+          f"{len(views)} strided inputs (f64 and double-single, both axes), a wider K pad, "
+          f"NaN and zero rows: bitwise; {len(refused)} layouts the kernel cannot stage: "
+          f"refused", flush=True)
+
+    # -- adversarial: slice entries of +-256 units, and of odd units ------------
+    peaks = {}
+    for k in (256, 512, 1024):
+        for kind in hpmm_cases.KINDS:
+            ia, ib = hpmm_cases.adversarial_ints(kind, 70, k, 41, GMAX + 1, seed=k)
+            ch_x, cl_x, peak, low_bits = hpmm_cases.exact_pairs_ref(ia, ib, GMAX)
+            a_sl = torch.as_tensor(hpmm_cases.slices_from_ints(ia), device=dev).to(torch.bfloat16)
+            b_kn = torch.as_tensor(hpmm_cases.slices_from_ints(ib), device=dev).to(torch.bfloat16)
+            # K-contiguous B storage, the layout the main path hands K1
+            b_sl = b_kn.transpose(1, 2).contiguous().transpose(1, 2)
+            name = f"adversarial {kind}, K = {k}"
+            worst = max(worst, _check_pairs(hpmm, name, a_sl, b_sl))
+            ch, cl = hpmm.hpmm_pairs(a_sl, b_sl, GMAX)
+            _require(np.array_equal(ch.cpu().numpy(), ch_x)
+                     and np.array_equal(cl.cpu().numpy(), cl_x),
+                     f"hpmm_pairs differs from the int64 reference at {name}")
+            peaks[kind] = (peak, low_bits)
+    _require(peaks["same"] == (2 ** 24, False), "the +256 case misses the 2^24 bound")
+    _require(peaks["odd_same"] == (2 ** 24 - 130816, True) and peaks["odd_random"][1],
+             "the odd cases do not set low bits near the 2^24 bound")
+    print(f"[kernel] adversarial slices at K = 256/512/1024, +-256 units (same, alternating, "
+          f"random signs) and odd units of equal sign (all 255; random odd <= 255): K1 == "
+          f"matmul_sliced_ref == int64 reference, bitwise; largest in-chunk sum in units, and "
+          f"whether bits below 2^16 units are set: {peaks}", flush=True)
+
+    # -- the wrappers that reuse the two kernels, card against host ------------
+    a = torch.as_tensor(rng.standard_normal((501, 500)), device=dev)
+    b = torch.as_tensor(rng.standard_normal((500, 64)), device=dev)
+    ah, al = hpmm.dd.from_f64(a)
+    bh, bl = hpmm.dd.from_f64(b)
+
+    def presliced(x, y):
+        return hpmm.hpmm_presliced(*hpmm.hpmm_slice_a(x), y)
+
+    wrappers = {
+        "hpmm_syrk [501,500]": (hpmm.hpmm_syrk, (a,)),
+        "hpmm_slice_a + hpmm_presliced": (presliced, (a, b)),
+        "hpmm_dd": (hpmm.hpmm_dd, (ah, al, bh, bl)),
+        "hpmm_dd_syrk [501,500]": (hpmm.hpmm_dd_syrk, (ah, al)),
+    }
+    for name, (fn, args) in wrappers.items():
+        k0, s0 = hpmm.KERNEL_LAUNCHES, hpmm.SLICE_LAUNCHES
+        got = fn(*args)
+        launched = (hpmm.KERNEL_LAUNCHES - k0, hpmm.SLICE_LAUNCHES - s0)
+        want = fn(*(x.cpu() for x in args))
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        _require(all(_same(g.cpu(), w) for g, w in zip(got, want)),
+                 f"{name} on the card differs from the plain versions on the host")
+        print(f"[kernel] {name}: card == host plain versions bitwise; launches "
+              f"(K1, K1s) = {launched}", flush=True)
+
+    # -- one hpmm is three launches ---------------------------------------------
+    a, b = cases[1][1], cases[1][2]
+    k0, s0 = hpmm.KERNEL_LAUNCHES, hpmm.SLICE_LAUNCHES
+    hpmm.hpmm(a, b)
+    counted = (hpmm.KERNEL_LAUNCHES - k0, hpmm.SLICE_LAUNCHES - s0)
+    names = _count_device_kernels(lambda: hpmm.hpmm(a, b))
+    print(f"[kernel] one hpmm at the pair shape: counters (K1, K1s) = {counted}; device "
+          f"kernels seen by the profiler: {len(names)} {names}", flush=True)
+    _require(counted == (1, 2), f"one hpmm counted {counted} launches, not (1, 2)")
+    _require(len(names) == 3 and sum("hpmm_slice" in n for n in names) == 2
+             and sum("hpmm_pairs" in n for n in names) == 1,
+             f"one hpmm ran {names} on the device, not its three kernels")
+    return worst, worst_slice, times
 
 
 def main() -> int:
@@ -133,7 +430,7 @@ def main() -> int:
     import hdsdp_tpu_torch  # noqa: F401  (sets the no-TF32 policy)
     from hdsdp_tpu_torch.io.sdpa import write_sdpa
     from hdsdp_tpu_torch.models.synthetic import gpp_sdpa
-    from hdsdp_tpu_torch.ops import cuda_build, hpmm
+    from hdsdp_tpu_torch.ops import cuda_build, hpmm, hpmm_cases
     from hdsdp_tpu_torch.solver.solver import solve_sdpa_file
 
     dev = torch.device("cuda", 0)
@@ -143,15 +440,18 @@ def main() -> int:
 
     # -- build --------------------------------------------------------
     t0 = time.perf_counter()
-    _, rec = cuda_build.load("hpmm_pairs")
-    print(f"[build] hpmm_pairs: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {rec['seconds']:.2f} s) -> {rec['path'].name}", flush=True)
-    for line in rec["log"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[build] {line.strip()}", flush=True)
+    records = cuda_build.build_all()
+    print(f"[build] {len(records)} kernels in {time.perf_counter() - t0:.2f} s, "
+          f"one nvcc each, started together", flush=True)
+    for name, rec in records.items():
+        cuda_build.load(name)
+        print(f"[build] {name}: nvcc {rec['seconds']:.2f} s -> {rec['path'].name}", flush=True)
+        for line in rec["log"].splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"[build] {name}: {line.strip()}", flush=True)
 
-    # -- kernel vs plain ------------------------------------------------
-    max_err, (t_k, t_p, t_f) = _kernel_phase(hpmm, dev)
+    # -- kernels vs plain versions --------------------------------------
+    max_err, max_err_slice, times = _kernel_phase(hpmm, hpmm_cases, dev)
 
     # -- the slice: gpp500 with the Ozaki Schur assembly ------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -159,24 +459,26 @@ def main() -> int:
         write_sdpa(gpp_sdpa(n=500, seed=0), path)
         torch.cuda.synchronize()
         hpmm.KERNEL_LAUNCHES = 0
+        hpmm.SLICE_LAUNCHES = 0
         t0 = time.perf_counter()
         r = solve_sdpa_file(path, device="cuda", kkt_hp="on", verbose=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = hpmm.KERNEL_LAUNCHES
+        slice_launches = hpmm.SLICE_LAUNCHES
     dmax = float(abs(r.dimacs).max())
     rel_d = abs(r.d_obj - REF_D_OBJ) / abs(REF_D_OBJ)
     print(f"[slice] gpp500 kkt_hp=on: {r.status} iters {r.n_iters} "
           f"d_obj {r.d_obj!r} p_obj {r.p_obj!r} rel d_obj err {rel_d:.3e} "
           f"DIMACS max {dmax:.3e} wall {wall:.2f} s stats {r.stats} "
-          f"hpmm_pairs launches {launches} on {r.device}; JAX reference "
-          f"{REF_ITERS} iters", flush=True)
+          f"hpmm_pairs launches {launches} hpmm_slice launches {slice_launches} "
+          f"on {r.device}; JAX reference {REF_ITERS} iters", flush=True)
     checks = {
         "status": r.status == "PRIMAL_DUAL_OPTIMAL",
         "iters": abs(r.n_iters - REF_ITERS) <= ITER_TOL,
         "d_obj": rel_d <= 1e-7,
         "dimacs": dmax <= 1e-6,
-        "launches": launches > 0,
+        "launches": launches > 0 and slice_launches == 2 * launches,
         "device": r.device.startswith("cuda"),
         "y": r.y.shape == (501,) and bool(torch.isfinite(torch.as_tensor(r.y)).all()),
     }
@@ -196,6 +498,11 @@ def main() -> int:
             and abs(rg.n_iters - rc.n_iters) <= 1 and rel_small <= 1e-7):
         raise AssertionError("small solve on the card disagrees with the host")
 
+    # K1 at the pair shape; K1s as the mean of the four operand launches of
+    # the main path's two products (FU: A and a row-major B; pair: A and B
+    # as a transposed view), its plain version and bound likewise; each
+    # max_abs_err is the worst difference met in the kernel phase
+    tf, tp = times["FU"], times["pair"]
     kernels = [{
         "name": "hpmm_pairs",
         "route": "cuda",
@@ -203,11 +510,29 @@ def main() -> int:
         "replaces": "hdsdp_tpu/ops/hpmm.py:162",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": t_k,
-        "plain_ms": t_p,
+        "ms": tp["pairs_f64"],
+        "plain_ms": tp["pairs_plain"],
+        "bound_ms": tp["pairs_bound"][0],
+        "bound_by": tp["pairs_bound"][1],
+        "library_ms": tp["matmul"],
+    }, {
+        "name": "hpmm_slice",
+        "route": "cuda",
+        "source": "hdsdp_tpu_torch/csrc/hpmm_slice.cu",
+        "replaces": "hdsdp_tpu/ops/hpmm.py:297",
+        "launches": slice_launches,
+        "max_abs_err": max_err_slice,
+        "ms": (tf["slice_a"] + tf["slice_b"] + tp["slice_a"] + tp["slice_b"]) / 4,
+        "plain_ms": (tf["slice_a_plain"] + tf["slice_b_plain"]
+                     + tp["slice_a_plain"] + tp["slice_b_plain"]) / 4,
+        "bound_ms": (tf["slice_a_bound"][0] + tf["slice_b_bound"][0]
+                     + tp["slice_a_bound"][0] + tp["slice_b_bound"][0]) / 4,
+        "bound_by": tp["slice_a_bound"][1],
+        "library_ms": None,
     }]
-    print(f"[summary] f64 torch.matmul at the pair shape {t_f:.4f} ms; "
-          f"gpp500 solve wall {wall:.3f} s", flush=True)
+    print(f"[summary] whole hpmm at the pair shape: {tp['hpmm_device']:.4f} ms on the device, "
+          f"{tp['hpmm']:.4f} ms per eager call; f64 torch.matmul {tp['matmul']:.4f} / "
+          f"{tp['matmul_eager']:.4f} ms; gpp500 solve wall {wall:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -28,6 +29,16 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+_PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+# kernel -> {entry point: argtypes}; every entry point returns a cudaError
+SIGNATURES = {
+    # a, b, ch, cl, c64, ea, eb | M, N, K, gmax | a, b and output strides | stream
+    "hpmm_pairs": {"hpmm_pairs_launch": [_PTR] * 7 + [_INT] * 4 + [_LL] * 8 + [_PTR]},
+    # x (or h), l, out, e | I, K, Kp, q | strides of x and l | stream
+    "hpmm_slice": {"hpmm_slice_launch": [_PTR] * 4 + [_INT] * 4 + [_LL] * 4 + [_PTR]},
+}
 
 # name -> (ctypes library, build record); filled on first use
 _LOADED: dict = {}
@@ -75,9 +86,26 @@ def build(name: str) -> dict:
     return {"path": out, "seconds": seconds, "log": log}
 
 
+def build_all(names=None) -> dict:
+    """Build several kernels at once, one nvcc process each, all started
+    together; returns {name: build record}."""
+    names = list(SIGNATURES) if names is None else list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
+
+
 def load(name: str):
-    """(ctypes.CDLL, build record) for csrc/<name>.cu, built on first use."""
+    """(ctypes.CDLL, build record) for csrc/<name>.cu, built on first use.
+
+    The entry points' ``restype``/``argtypes`` (``SIGNATURES``) are set
+    once, here, so a launch pays for no ctypes set-up and no pointer is
+    ever passed as a 32-bit int."""
     if name not in _LOADED:
         rec = build(name)
-        _LOADED[name] = (ctypes.CDLL(str(rec["path"])), rec)
+        lib = ctypes.CDLL(str(rec["path"]))
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.restype = ctypes.c_int  # a cudaError
+            fn.argtypes = argtypes
+        _LOADED[name] = (lib, rec)
     return _LOADED[name]

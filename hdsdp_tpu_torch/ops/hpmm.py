@@ -6,22 +6,23 @@ TPU's bf16 matrix unit.  The port keeps the same numerics so that the
 
   1. scale each row of A (column of B) by a power of two so the row max
      lands in ~[0.5, 1) (exact);
-  2. cut each normalized value into q = gmax + 1 bf16 slices of 8 bits;
+  2. cut each normalized value into q = gmax + 1 bf16 slices of 8 bits
+     (steps 1 and 2: kernel K1s, ``csrc/hpmm_slice.cu``, one launch per
+     operand);
   3. for each slice pair (t, u) with t + u <= gmax, accumulate the bf16
      products in f32, exactly within 256-wide K chunks, and fold the pairs
      into a double-single (hi, lo) accumulator (kernel K1,
      ``csrc/hpmm_pairs.cu``);
-  4. rescale in f64.
+  4. rescale in f64 (K1's epilogue).
 
-Result: C = A @ B with relative error ~2^-45.  The prologue (steps 1, 2)
-and epilogue (step 4) are tensor ops; step 3 is :func:`hpmm_pairs`, which
-launches the CUDA kernel for CUDA tensors and runs the plain version
-:func:`matmul_sliced_ref` for CPU tensors only.
+Result: C = A @ B with relative error ~2^-45.  On a CUDA tensor one
+:func:`hpmm` is three kernel launches (:func:`hpmm_slice` twice, then
+:func:`hpmm_pairs` with its f64 epilogue) and no other device work.  For
+CPU tensors, and only for them, the wrappers run the plain versions
+:func:`slice_ref` and :func:`matmul_sliced_ref`.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -29,11 +30,12 @@ import torch.nn.functional as F
 from hdsdp_tpu_torch.ops import dd
 
 _CHUNK = 256  # K-chunk size for exact in-chunk f32 accumulation
-_KERNEL_MAX_GMAX = 7  # the CUDA kernel is instantiated for gmax 0..7
+_KERNEL_MAX_GMAX = 7  # both CUDA kernels take gmax 0..7
 
-# Launches of the CUDA kernel (hpmm_pairs_launch); the plain version and
-# the CPU path never count.
+# Launches of the CUDA kernels (hpmm_pairs_launch, hpmm_slice_launch); the
+# plain versions and the CPU path never count.
 KERNEL_LAUNCHES = 0
+SLICE_LAUNCHES = 0
 
 
 def _exp_of(m: torch.Tensor) -> torch.Tensor:
@@ -66,12 +68,89 @@ def _slices(nh: torch.Tensor, nl: torch.Tensor, q: int) -> torch.Tensor:
     return torch.stack(out)
 
 
-def _pad_k(x: torch.Tensor, axis: int) -> torch.Tensor:
-    pad = (-x.shape[axis]) % _CHUNK
-    if not pad:
-        return x
-    widths = [0, 0] * (x.ndim - axis - 1) + [0, pad]
-    return F.pad(x, widths)
+def _padded_k(k_dim: int, kpad: int | None) -> int:
+    """K rounded up to a multiple of 256, or the caller's larger pad."""
+    kp = k_dim + (-k_dim) % _CHUNK
+    if kpad is None:
+        return kp
+    if kpad < kp or kpad % _CHUNK:
+        raise ValueError(f"kpad = {kpad} must be a multiple of {_CHUNK} and >= {kp}")
+    return kpad
+
+
+def _split_operand(x):
+    """(h, l or None, the 2-d tensor that gives shape and device) of a
+    slicing input: one f64 matrix, or an f32 double-single pair."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype != torch.float64 or x.ndim != 2:
+            raise TypeError("hpmm_slice takes a 2-d float64 tensor or an (h, l) float32 pair")
+        return x, None
+    h, l = x
+    if not (isinstance(h, torch.Tensor) and isinstance(l, torch.Tensor)
+            and h.dtype == l.dtype == torch.float32 and h.ndim == 2):
+        raise TypeError("hpmm_slice takes a 2-d float64 tensor or an (h, l) float32 pair")
+    if h.shape != l.shape or h.device != l.device:
+        raise ValueError("the (h, l) pair disagrees in shape or device")
+    return h, l
+
+
+def slice_ref(x, axis: int, gmax: int = 5, kpad: int | None = None):
+    """Plain PyTorch version of the slicing kernel K1s.
+
+    x is an f64 matrix or an f32 double-single pair (h, l); axis is the
+    axis the scale is taken over and K runs along: 1 for a left operand
+    [M, K] (row scales), 0 for a right operand [K, N] (column scales).
+    Returns (slices [q, M, Kp] or [q, Kp, N] bf16 with K zero-padded to a
+    multiple of 256, e int32 [M, 1] or [1, N]: the scales are 2^e)."""
+    h, l = _split_operand(x)
+    e = _exp_of(torch.amax(torch.abs(h), dim=axis, keepdim=True))
+    inv = _pow2(-e, h.dtype)  # exact scaling
+    nh, nl = dd.from_f64(h * inv) if l is None else (h * inv, l * inv)
+    sl = _slices(nh, nl, gmax + 1)
+    pad = _padded_k(h.shape[axis], kpad) - h.shape[axis]
+    if pad:
+        sl = F.pad(sl, [0, pad] if axis == 1 else [0, 0, 0, pad])
+    return sl.contiguous(), e
+
+
+def hpmm_slice(x, axis: int, gmax: int = 5, kpad: int | None = None):
+    """Slices and scale exponents of one operand (see :func:`slice_ref`):
+    the CUDA kernel K1s for CUDA tensors, the plain version for CPU
+    tensors.  On the card a right operand's slices come back as the
+    [q, Kp, N] view of K-contiguous [q, N, Kp] storage, the layout K1
+    reads fastest."""
+    global SLICE_LAUNCHES
+    if axis not in (0, 1):
+        raise ValueError(f"axis = {axis} must be 0 or 1")
+    h, l = _split_operand(x)
+    if h.device.type == "cpu":
+        return slice_ref(x, axis, gmax, kpad)
+    if h.device.type != "cuda":
+        raise ValueError(f"hpmm_slice: unsupported device {h.device}")
+    if not 0 <= gmax <= _KERNEL_MAX_GMAX:
+        raise ValueError(f"the CUDA kernel takes 0 <= gmax <= {_KERNEL_MAX_GMAX}, got {gmax}")
+    from hdsdp_tpu_torch.ops import cuda_build
+
+    lib, _ = cuda_build.load("hpmm_slice")
+    q = gmax + 1
+    n_keep, k_dim = h.shape[1 - axis], h.shape[axis]
+    kp = _padded_k(k_dim, kpad)
+    out = torch.empty((q, n_keep, kp), dtype=torch.bfloat16, device=h.device)
+    e = torch.empty((n_keep,), dtype=torch.int32, device=h.device)
+    l_strides = (0, 0) if l is None else (l.stride(1 - axis), l.stride(axis))
+    with torch.cuda.device(h.device):
+        err = lib.hpmm_slice_launch(
+            h.data_ptr(), None if l is None else l.data_ptr(),
+            out.data_ptr(), e.data_ptr(), n_keep, k_dim, kp, q,
+            h.stride(1 - axis), h.stride(axis), *l_strides,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"hpmm_slice kernel launch failed: cudaError {err}")
+    SLICE_LAUNCHES += 1
+    if axis == 1:
+        return out, e.view(n_keep, 1)
+    return out.transpose(1, 2), e.view(1, n_keep)
 
 
 def matmul_sliced_ref(a_sl: torch.Tensor, b_sl: torch.Tensor, gmax: int):
@@ -100,12 +179,27 @@ def matmul_sliced_ref(a_sl: torch.Tensor, b_sl: torch.Tensor, gmax: int):
     return ch, cl
 
 
-def _check_slices(a_sl, b_sl, gmax):
+def pairs_ref(a_sl, b_sl, gmax, ea=None, eb=None, out_f64=False):
+    """Plain PyTorch version of kernel K1 with its epilogues: the pair
+    accumulation, then nothing, the f32 scale 2^ea * 2^eb on (Ch, Cl), or
+    the f64 rescale C = (Ch + Cl) * 2^ea * 2^eb."""
+    ch, cl = matmul_sliced_ref(a_sl, b_sl, gmax)
+    if ea is None:
+        return ch, cl
+    if out_f64:
+        c = ch.to(torch.float64) + cl.to(torch.float64)
+        # rescale as a product of two in-f32-range factors (|e| <= 121 each)
+        return c * _pow2(ea, torch.float64) * _pow2(eb, torch.float64)
+    s = _pow2(ea, torch.float32) * _pow2(eb, torch.float32)  # powers of two, exact
+    return ch * s, cl * s
+
+
+def _check_slices(a_sl, b_sl, gmax, ea, eb, out_f64):
     if a_sl.dtype != torch.bfloat16 or b_sl.dtype != torch.bfloat16:
         raise TypeError("hpmm_pairs takes bf16 slices")
     if a_sl.ndim != 3 or b_sl.ndim != 3:
         raise ValueError("hpmm_pairs takes [q, M, K] and [q, K, N] slices")
-    q, _, k_dim = a_sl.shape
+    q, m_dim, k_dim = a_sl.shape
     if b_sl.shape[0] != q or b_sl.shape[1] != k_dim:
         raise ValueError(f"slice shapes {tuple(a_sl.shape)} and {tuple(b_sl.shape)} disagree")
     if k_dim % _CHUNK:
@@ -114,57 +208,81 @@ def _check_slices(a_sl, b_sl, gmax):
         raise ValueError(f"gmax = {gmax} needs 0 <= gmax < q = {q}")
     if a_sl.device != b_sl.device:
         raise ValueError("slices lie on different devices")
+    if (ea is None) != (eb is None) or (out_f64 and ea is None):
+        raise ValueError("the scaled forms of hpmm_pairs need both ea and eb")
+    if ea is not None:
+        n_dim = b_sl.shape[2]
+        for e, n in ((ea, m_dim), (eb, n_dim)):
+            if e.dtype != torch.int32 or e.numel() != n or e.device != a_sl.device:
+                raise ValueError("ea / eb must be int32 exponents of M / N entries "
+                                 "on the slices' device")
 
 
-def hpmm_pairs(a_sl: torch.Tensor, b_sl: torch.Tensor, gmax: int):
-    """Pair accumulation (Ch, Cl) of the slices: the CUDA kernel K1 for
-    CUDA tensors, the plain version for CPU tensors."""
+def hpmm_pairs(a_sl: torch.Tensor, b_sl: torch.Tensor, gmax: int,
+               ea: torch.Tensor | None = None, eb: torch.Tensor | None = None,
+               out_f64: bool = False):
+    """Pair accumulation of the slices: the CUDA kernel K1 for CUDA tensors,
+    the plain version :func:`pairs_ref` for CPU tensors.
+
+    Returns (Ch, Cl) f32; with the exponents ea [M, 1], eb [1, N] of the
+    operands' scales, (Ch, Cl) times the f32 scale 2^ea * 2^eb; with
+    ``out_f64`` the f64 product (Ch + Cl) * 2^ea * 2^eb instead.  On the
+    card both operands must be K-contiguous with 16-byte-aligned rows:
+    a_sl as [q, M, K] storage, b_sl as the [q, K, N] view of [q, N, K]
+    storage, which is how :func:`hpmm_slice` returns them (row-strided
+    views of either are taken too)."""
     global KERNEL_LAUNCHES
-    _check_slices(a_sl, b_sl, gmax)
+    _check_slices(a_sl, b_sl, gmax, ea, eb, out_f64)
     if a_sl.device.type == "cpu":
-        return matmul_sliced_ref(a_sl, b_sl, gmax)
+        return pairs_ref(a_sl, b_sl, gmax, ea, eb, out_f64)
     if a_sl.device.type != "cuda":
         raise ValueError(f"hpmm_pairs: unsupported device {a_sl.device}")
     if gmax > _KERNEL_MAX_GMAX:
         raise ValueError(f"the CUDA kernel takes gmax <= {_KERNEL_MAX_GMAX}, got {gmax}")
+    for name, sl, (s_q, s_row, s_k) in (
+        ("a_sl", a_sl, a_sl.stride()),
+        ("b_sl", b_sl, (b_sl.stride(0), b_sl.stride(2), b_sl.stride(1))),
+    ):
+        if s_k != 1 or s_q % 8 or s_row % 8 or sl.data_ptr() % 16:
+            raise ValueError(
+                f"the CUDA kernel takes K-contiguous slices with 16-byte-aligned rows "
+                f"(as hpmm_slice returns them); {name} has strides {sl.stride()}")
     from hdsdp_tpu_torch.ops import cuda_build
 
     lib, _ = cuda_build.load("hpmm_pairs")
-    fn = lib.hpmm_pairs_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-        + [ctypes.c_longlong] * 8 + [ctypes.c_void_p]
-    )
     _, m_dim, k_dim = a_sl.shape
     n_dim = b_sl.shape[2]
-    ch = torch.empty((m_dim, n_dim), dtype=torch.float32, device=a_sl.device)
-    cl = torch.empty_like(ch)
-    with torch.cuda.device(a_sl.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            a_sl.data_ptr(), b_sl.data_ptr(), ch.data_ptr(), cl.data_ptr(),
+    dev = a_sl.device
+    if out_f64:
+        outs = (torch.empty((m_dim, n_dim), dtype=torch.float64, device=dev),)
+        ptrs = (None, None, outs[0].data_ptr())
+    else:
+        outs = (torch.empty((m_dim, n_dim), dtype=torch.float32, device=dev),
+                torch.empty((m_dim, n_dim), dtype=torch.float32, device=dev))
+        ptrs = (outs[0].data_ptr(), outs[1].data_ptr(), None)
+    if ea is not None:
+        ea, eb = ea.contiguous(), eb.contiguous()  # views of [M], [N]: no copy
+    with torch.cuda.device(dev):
+        err = lib.hpmm_pairs_launch(
+            a_sl.data_ptr(), b_sl.data_ptr(), *ptrs,
+            None if ea is None else ea.data_ptr(),
+            None if eb is None else eb.data_ptr(),
             m_dim, n_dim, k_dim, gmax,
-            *a_sl.stride(), *b_sl.stride(), *ch.stride(), stream,
+            *a_sl.stride(), *b_sl.stride(), *outs[0].stride(),
+            torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"hpmm_pairs kernel launch failed: cudaError {err}")
     KERNEL_LAUNCHES += 1
-    return ch, cl
+    return outs[0] if out_f64 else outs
 
 
 def slice_operands(a: torch.Tensor, b: torch.Tensor, gmax: int = 5):
     """The prologue of :func:`hpmm`: (a_sl [q, M, Kp], b_sl [q, Kp, N]
     bf16 slices with K zero-padded to a multiple of 256, ea [M, 1] and
     eb [1, N] power-of-two exponents of the row/column scales)."""
-    q = gmax + 1
-    ea = _exp_of(torch.amax(torch.abs(a), dim=1, keepdim=True))
-    ah, al = dd.from_f64(a * _pow2(-ea, a.dtype))  # exact scaling
-    a_sl = _pad_k(_slices(ah, al, q), axis=2).contiguous()
-
-    eb = _exp_of(torch.amax(torch.abs(b), dim=0, keepdim=True))
-    bh, bl = dd.from_f64(b * _pow2(-eb, b.dtype))
-    b_sl = _pad_k(_slices(bh, bl, q), axis=1).contiguous()
+    a_sl, ea = hpmm_slice(a, 1, gmax)
+    b_sl, eb = hpmm_slice(b, 0, gmax)
     return a_sl, b_sl, ea, eb
 
 
@@ -175,7 +293,41 @@ def hpmm(a: torch.Tensor, b: torch.Tensor, gmax: int = 5) -> torch.Tensor:
     inputs may use the full f64 exponent range.  NaN propagates to the
     affected rows and columns."""
     a_sl, b_sl, ea, eb = slice_operands(a, b, gmax)
-    ch, cl = hpmm_pairs(a_sl, b_sl, gmax)
-    c = ch.to(a.dtype) + cl.to(a.dtype)
-    # rescale as a product of two in-f32-range factors (|e| <= 121 each)
-    return c * _pow2(ea, a.dtype) * _pow2(eb, a.dtype)
+    return hpmm_pairs(a_sl, b_sl, gmax, ea, eb, out_f64=True)
+
+
+def hpmm_dd(ah, al, bh, bl, gmax: int = 5):
+    """(Ah+Al) @ (Bh+Bl) -> (Ch, Cl), all f32 double-single pairs.
+
+    Callers must keep magnitudes within f32 range; the internal slicing
+    is range-safe via power-of-two normalization."""
+    a_sl, ea = hpmm_slice((ah, al), 1, gmax)
+    b_sl, eb = hpmm_slice((bh, bl), 0, gmax)
+    return hpmm_pairs(a_sl, b_sl, gmax, ea, eb)
+
+
+def hpmm_dd_syrk(ah, al, gmax: int = 5):
+    """(Ah+Al) @ (Ah+Al).T -> (Ch, Cl) with a single slice extraction."""
+    a_sl, ea = hpmm_slice((ah, al), 1, gmax)
+    return hpmm_pairs(a_sl, a_sl.transpose(1, 2), gmax, ea, ea.view(1, -1))
+
+
+def hpmm_slice_a(a: torch.Tensor, gmax: int = 5):
+    """Pre-slice the left operand of :func:`hpmm` for reuse across many
+    products with the same a.  Returns (a_sl [q, M, Kp] bf16, ea [M, 1]
+    int32 row exponents)."""
+    return hpmm_slice(a, 1, gmax)
+
+
+def hpmm_presliced(a_sl: torch.Tensor, ea: torch.Tensor, b: torch.Tensor,
+                   gmax: int = 5) -> torch.Tensor:
+    """f64 (pre-sliced a) @ b, the per-product half of :func:`hpmm`; b's
+    K pad is made to match the pre-sliced operand's."""
+    b_sl, eb = hpmm_slice(b, 0, gmax, kpad=a_sl.shape[2])
+    return hpmm_pairs(a_sl, b_sl, gmax, ea, eb, out_f64=True)
+
+
+def hpmm_syrk(a: torch.Tensor, gmax: int = 5) -> torch.Tensor:
+    """f64 a @ a.T with a single slice extraction."""
+    a_sl, ea = hpmm_slice(a, 1, gmax)
+    return hpmm_pairs(a_sl, a_sl.transpose(1, 2), gmax, ea, ea.view(1, -1), out_f64=True)

@@ -1,0 +1,212 @@
+"""Where a solve's time goes, stage by stage, on one CUDA card.
+
+    python -m hdsdp_tpu_torch.utils.stage_profile [--out FILE]
+
+Solves the gpp instance ``gpp_sdpa(n=500, seed=0)`` with ``kkt_hp="on"``
+through ``solve_sdpa_file`` once to warm up, then five times with host
+timers around the cone
+system's stages (``ConeSystem`` methods, the M factor and solves of
+``DualIPM``, the DIMACS check), then once more under ``torch.profiler`` to
+count what ran on the device.  It reports:
+
+  - the wall time of every timed solve (host clock, ending in a device
+    sync) and, for the median solve, each stage's calls, host milliseconds
+    and share of the wall; what no timer covers is the host loop itself;
+  - from the profiled solve: the number of device kernels (every profiler
+    event on the device that is not a memory copy or memset) in total and
+    per iteration, the device-to-host copies, the device's busy time as
+    the union of the kernels' intervals, and the kernels that took most
+    device time, by name;
+  - the launches of the port's own CUDA kernels (their wrappers' counters).
+
+The result is printed as one JSON object, and written to ``--out`` when
+that is given.  A stage's host time includes waiting
+for the device wherever the stage reads a value back.  It needs a card:
+without one it exits with an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from collections import defaultdict
+
+N, REPS, KKT_HP = 500, 5, "on"  # the one configuration measured so far
+
+STAGES = {  # report name -> (owner, method)
+    "assemble": ("cones", "assemble"),
+    "psd_factor": ("cones", "factor"),
+    "logdet": ("cones", "logdet"),
+    "build_kkt": ("cones", "build_kkt"),
+    "interior_check": ("cones", "interior_check"),
+    "ratio_test": ("cones", "ratio_test"),
+    "add_step_check": ("cones", "add_step_check"),
+    "m_factor": ("ipm", "factor_kkt"),
+    "m_solve": ("ipm", "_solve_mat"),
+    "dimacs_check": ("dimacs", "check_solution"),
+}
+
+
+def _install_timers(owners, acc):
+    """Wrap each stage so that its host time and calls add up in acc;
+    nested stages (the DIMACS check re-enters the cone system) count in
+    the outermost one only.  Returns a function that undoes the wrapping."""
+    depth = [0]
+    saved = []
+    for stage, (owner, method) in STAGES.items():
+        target = owners[owner]
+        fn = getattr(target, method)
+        saved.append((target, method, fn))
+
+        def timed(*args, _fn=fn, _stage=stage, **kwargs):
+            if depth[0]:
+                return _fn(*args, **kwargs)
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                acc[_stage][0] += 1
+                acc[_stage][1] += time.perf_counter() - t0
+                depth[0] -= 1
+
+        setattr(target, method, timed)
+
+    def undo():
+        for target, method, fn in saved:
+            setattr(target, method, fn)
+
+    return undo
+
+
+def _union_length(intervals):
+    """Length of the union of (start, end) intervals, in their unit."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None, help="also write the JSON to this file")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("stage_profile: needs a CUDA card", file=sys.stderr)
+        return 1
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hdsdp_tpu_torch.io.sdpa import write_sdpa
+    from hdsdp_tpu_torch.models.synthetic import gpp_sdpa
+    from hdsdp_tpu_torch.ops import hpmm
+    from hdsdp_tpu_torch.solver import dimacs
+    from hdsdp_tpu_torch.solver.algo import DualIPM
+    from hdsdp_tpu_torch.solver.cones import ConeSystem
+    from hdsdp_tpu_torch.solver.solver import solve_sdpa_file
+
+    owners = {"cones": ConeSystem, "ipm": DualIPM, "dimacs": dimacs}
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "gpp.dat-s")
+        write_sdpa(gpp_sdpa(n=N, seed=0), path)
+
+        def solve():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = solve_sdpa_file(path, device="cuda", kkt_hp=KKT_HP, verbose=False)
+            torch.cuda.synchronize()
+            return r, time.perf_counter() - t0
+
+        r, first_wall = solve()  # builds the kernels, starts the libraries
+        runs = []
+        for _ in range(REPS):
+            acc = defaultdict(lambda: [0, 0.0])
+            undo = _install_timers(owners, acc)
+            try:
+                r, wall = solve()
+            finally:
+                undo()
+            runs.append((wall, {k: list(v) for k, v in acc.items()}))
+        hpmm.KERNEL_LAUNCHES = hpmm.SLICE_LAUNCHES = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            r, prof_wall = solve()
+        own = {"hpmm_pairs": hpmm.KERNEL_LAUNCHES, "hpmm_slice": hpmm.SLICE_LAUNCHES}
+
+    walls = [w for w, _ in runs]
+    med_wall, med_acc = sorted(runs, key=lambda x: x[0])[len(runs) // 2]
+    stages = {
+        s: {"calls": c, "host_ms": 1e3 * t, "share": t / med_wall}
+        for s, (c, t) in sorted(med_acc.items(), key=lambda kv: -kv[1][1])
+    }
+    covered = sum(t for _, t in med_acc.values())
+    stages["host_loop_rest"] = {"calls": None, "host_ms": 1e3 * (med_wall - covered),
+                                "share": (med_wall - covered) / med_wall}
+
+    kernels, copies_d2h, by_name = [], 0, defaultdict(lambda: [0, 0.0])
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        name = ev.name
+        if name.startswith(("Memcpy", "Memset")):
+            copies_d2h += "DtoH" in name
+            continue
+        kernels.append((ev.time_range.start, ev.time_range.end))
+        short = name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+        by_name[short][0] += 1
+        by_name[short][1] += (ev.time_range.end - ev.time_range.start) / 1e3
+    busy = _union_length(kernels) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    out = {
+        "card": card,
+        "torch": torch.__version__,
+        "instance": f"gpp_sdpa(n={N}, seed=0), kkt_hp={KKT_HP}",
+        "status": r.status, "iters": r.n_iters, "d_obj": r.d_obj,
+        "first_solve_wall_s": first_wall,
+        "warm_walls_s": walls,
+        "warm_wall_median_s": statistics.median(walls),
+        "stages_of_median_solve": stages,
+        "profiled_solve": {
+            "wall_s": prof_wall,
+            "device_kernels": len(kernels),
+            "device_kernels_per_iteration": len(kernels) / max(r.n_iters, 1),
+            "device_to_host_copies": copies_d2h,
+            "device_to_host_copies_per_iteration": copies_d2h / max(r.n_iters, 1),
+            "device_busy_ms": busy,
+            "device_busy_share_of_profiled_wall": busy / (1e3 * prof_wall),
+            "device_busy_share_of_median_wall": busy / (1e3 * statistics.median(walls)),
+            "top_kernels_ms": {k: {"calls": c, "ms": t} for k, (c, t) in top},
+            "own_kernel_launches": own,
+        },
+    }
+    text = json.dumps(out, indent=1)
+    print(text)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
