@@ -25,7 +25,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              through solve_sdpa_file, count the kernels' launches in that
              run, and hold the result to the JAX package's reference;
              then hold a small solve on the card to the same solve on the
-             host.
+             host;
+  5. families  solve, through solve_sdpa_file with default parameters, the
+             five other named instances of utils/instances.py at SDPLIB size
+             (diag, bounded-support and flat Schur buckets, AdaptiveCG, PSDP)
+             and hold each to its status, its DIMACS errors and the JAX
+             package's objective; two of them (maxG51, theta6) are solved
+             twice and must repeat bit for bit.  One JSON line per solve.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}.
@@ -45,10 +51,28 @@ import time
 REF_ITERS = 61
 REF_D_OBJ = -1940.4850971721783
 # The iteration count is sensitive to ~1e-7 noise in the ratio test's
-# f32 Lanczos bound (PERF.md), but one card and one software stack give
-# the same count on every run, so the card is held to +-2.
-ITER_TOL = 2
+# f32 Lanczos bound: 61-88 over CPU runs of both packages (PERF.md), so
+# it is printed beside the reference and not held.  (An earlier form of
+# the Lanczos early exit gave 63 on the card and was held to 61 +- 2; it
+# took its Ritz pairs from a padded tridiagonal on which cuSOLVER's f32
+# eigensolver is unsound, see ops/ratio.py.)
 GMAX = 5
+
+# References for the families phase: (iterations, d_obj) of the JAX
+# package's host loop, HDSDPSolver(prob, fused=False) with default
+# parameters on the CPU, for the same generator call.  The objective is
+# held to 1e-7 relative; the iteration count is printed beside the card's
+# and not held (it is not reproducible across platforms at this size).
+FAMILY_REFS = {
+    "maxG51": (33, -261.4270223134347),
+    "torusg3-15": (36, -788.3130300314136),
+    "theta6": (78, -63.610668448987234),
+    "maxG55": (37, -1346.641369532926),
+    "control11": (30, -22.033029729518017),
+}
+FAMILY_CG = ("theta6", "maxG55")  # m >= kkt_cg_threshold: AdaptiveCG must engage
+FAMILY_PSDP = ("theta6",)  # one cone, n < m / 3: the refiner must run
+FAMILY_TWICE = ("maxG51", "theta6")  # solved twice: the trajectory must repeat
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
 PEAK_BYTES_S = 3.35e12    # HBM3
@@ -421,6 +445,58 @@ def _kernel_phase(hpmm, hpmm_cases, dev):
     return worst, worst_slice, times
 
 
+def _family_phase(torch, solve_sdpa_file, instances, hpmm):
+    """The five SDPLIB-size instances beyond gpp500 through the default
+    path; raises unless each meets its holds."""
+    for name, (ref_iters, ref_d_obj) in FAMILY_REFS.items():
+        runs = []
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, name + ".dat-s")
+            overrides = instances.write_instance(name, path)
+            for _ in range(2 if name in FAMILY_TWICE else 1):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                k0 = hpmm.KERNEL_LAUNCHES + hpmm.SLICE_LAUNCHES
+                t0 = time.perf_counter()
+                r = solve_sdpa_file(path, device="cuda", verbose=False, **overrides)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                runs.append(r)
+                st = r.stats
+                rel_d = abs(r.d_obj - ref_d_obj) / abs(ref_d_obj)
+                print(json.dumps({
+                    "family": name, "m": int(r.y.shape[0]), "status": r.status,
+                    "iterations": r.n_iters, "jax_iterations": ref_iters,
+                    "d_obj": r.d_obj, "p_obj": r.p_obj, "rel_d_obj_err": rel_d,
+                    "dimacs_max": float(abs(r.dimacs).max()), "wall_s": wall,
+                    "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                    "n_kkt": st["n_kkt"], "n_factor": st["n_factor"], "n_solve": st["n_solve"],
+                    "cg_n_factor": st.get("cg_n_factor"), "cg_n_solve": st.get("cg_n_solve"),
+                    "psdp_runs": st.get("psdp_runs", 0), "psdp_iters": st.get("psdp_iters", 0),
+                    "own_kernel_launches": hpmm.KERNEL_LAUNCHES + hpmm.SLICE_LAUNCHES - k0,
+                    "device": r.device,
+                }), flush=True)
+                checks = {
+                    "status": r.status == "PRIMAL_DUAL_OPTIMAL",
+                    "dimacs": float(abs(r.dimacs).max()) <= 1e-6,
+                    "d_obj": rel_d <= 1e-7,
+                    "device": r.device.startswith("cuda"),
+                    "cg": name not in FAMILY_CG
+                    or 0 < st.get("cg_n_factor", 0) < st.get("cg_n_solve", 0),
+                    "psdp": name not in FAMILY_PSDP or st.get("psdp_runs", 0) > 0,
+                }
+                if not all(checks.values()):
+                    raise AssertionError(f"{name} checks failed: {checks}")
+        if len(runs) == 2:
+            a, b = runs
+            same = (a.d_obj == b.d_obj and a.p_obj == b.p_obj and a.n_iters == b.n_iters
+                    and bool((torch.as_tensor(a.y) == torch.as_tensor(b.y)).all()))
+            print(f"[families] {name} solved twice: d_obj {a.d_obj!r} / {b.d_obj!r}, "
+                  f"iterations {a.n_iters} / {b.n_iters}, y bit-equal: {same}", flush=True)
+            if not same:
+                raise AssertionError(f"{name}: two solves in one process differ")
+
+
 def main() -> int:
     import torch
 
@@ -432,6 +508,7 @@ def main() -> int:
     from hdsdp_tpu_torch.models.synthetic import gpp_sdpa
     from hdsdp_tpu_torch.ops import cuda_build, hpmm, hpmm_cases
     from hdsdp_tpu_torch.solver.solver import solve_sdpa_file
+    from hdsdp_tpu_torch.utils import instances
 
     dev = torch.device("cuda", 0)
     smi = _smi_line()
@@ -475,7 +552,6 @@ def main() -> int:
           f"on {r.device}; JAX reference {REF_ITERS} iters", flush=True)
     checks = {
         "status": r.status == "PRIMAL_DUAL_OPTIMAL",
-        "iters": abs(r.n_iters - REF_ITERS) <= ITER_TOL,
         "d_obj": rel_d <= 1e-7,
         "dimacs": dmax <= 1e-6,
         "launches": launches > 0 and slice_launches == 2 * launches,
@@ -497,6 +573,9 @@ def main() -> int:
     if not (rg.status == rc.status == "PRIMAL_DUAL_OPTIMAL"
             and abs(rg.n_iters - rc.n_iters) <= 1 and rel_small <= 1e-7):
         raise AssertionError("small solve on the card disagrees with the host")
+
+    # -- the other families at SDPLIB size, default parameters -------------
+    _family_phase(torch, solve_sdpa_file, instances, hpmm)
 
     # K1 at the pair shape; K1s as the mean of the four operand launches of
     # the main path's two products (FU: A and a row-major B; pair: A and B

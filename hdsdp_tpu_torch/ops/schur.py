@@ -16,18 +16,31 @@ r(r+1)/2 plain [m,n] x [n,m] products indexed by constraint
 ref hdsdp_conic_sdp.c:687-778; dense coefficients follow M3,
 :780-851).  The RHS vectors ASinv_i = tr(A_i S^-1), tr(S^-1 A_i S^-1)
 and, for the homogeneous method, tr(C S^-1 A_i S^-1) come out of the same
-pass.  Scatters into constraint order use ``index_add``.
+pass.
 
-The other layouts of the JAX package (the diagonal rank-1 and
-bounded-support specializations of slot-major, and the flat multi-block
-layout) are chosen by the same presolve but not ported yet: every
-function here raises NotImplementedError naming the bucket.
+Slot-major groups come in three buckets, chosen at presolve: the generic
+one above; DIAGONAL rank-1 (A_i = w_i e_p e_p^T, the maxcut/torus
+structure), where M_ij = w_i w_j U[p_i, p_j]^2 is a gather and a square;
+and BOUNDED-SUPPORT (every eigenvector has <= c nonzeros, the theta
+structure), where each pair product is c^2 gathered m x m Hadamard terms.
+Multi-block groups are stored FLAT: F[g, R, n] with a constraint index per
+slot, and the pairwise terms Q[g, R, R] are summed into M by constraint.
+
+Every sum over duplicate indices has a FIXED ORDER, so that a solve
+repeats its trajectory bit for bit on the card (``index_add_`` on CUDA adds
+duplicates with atomics, in no fixed order): the positions that fall on
+one output are listed in a table at presolve (``with_tables``) and summed
+by a gather and a reduction along the table's width (``_table_sum``), or
+the sum is a matrix product with a constant 0/1 operator (``dsel``).
+``index_add`` is used only where the indices are unique (the dense bucket
+of a single-block group: one coefficient per constraint).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from hdsdp_tpu_torch.ops import hpmm
@@ -54,6 +67,14 @@ class GroupArrays(NamedTuple):
     # bounded-support specialization
     spos: Optional[torch.Tensor] = None  # [r, m, c]
     sval: Optional[torch.Tensor] = None  # [r, m, c]
+    # fixed-order summation tables (with_tables; see _table_sum)
+    dtab: Optional[torch.Tensor] = None  # [n, k] diag: constraints at each position
+    scell: Optional[torch.Tensor] = None  # [K] support: flat n*n cells that get a term
+    stab: Optional[torch.Tensor] = None  # [K, k] support: the terms of each cell
+    ftab: Optional[torch.Tensor] = None  # [g, m, k] flat: slots of a constraint in a block
+    fall: Optional[torch.Tensor] = None  # [m, k] flat: slots of a constraint over g*R
+    xtab: Optional[torch.Tensor] = None  # [m, k] flat: dense entries of a constraint
+    dsel: Optional[torch.Tensor] = None  # [g, md] 0/1: dense entry d lies in block g
 
 
 def bucket(ga: GroupArrays) -> str:
@@ -66,12 +87,6 @@ def bucket(ga: GroupArrays) -> str:
     if ga.Fs is not None:
         return "slot"
     return "flat"
-
-
-def _require_slot(ga: GroupArrays) -> None:
-    b = bucket(ga)
-    if b != "slot":
-        raise NotImplementedError(f"{b} bucket")
 
 
 class SchurOut(NamedTuple):
@@ -88,30 +103,162 @@ class HSDOut(NamedTuple):
     trUCU: torch.Tensor  # []  tr(S^-1 C S^-1) (caller multiplies by Rd)
 
 
+# ----------------------------------------------------------------------
+# fixed-order sums over duplicate indices
+# ----------------------------------------------------------------------
+
+
+def gather_table(idx: np.ndarray, n_out: int, keep=None) -> np.ndarray:
+    """[n_out, k] table for ``_table_sum``: row o lists, in ascending
+    order, the positions t with idx[t] == o (only those with keep[t]
+    when ``keep`` is given), padded with len(idx), the position of the
+    zero that ``_table_sum`` appends.  k is the largest count (>= 1)."""
+    idx = np.asarray(idx).reshape(-1)
+    n_in = idx.shape[0]
+    where = np.arange(n_in) if keep is None else np.nonzero(np.asarray(keep).reshape(-1))[0]
+    tgt = idx[where]
+    order = np.argsort(tgt, kind="stable")
+    tgt, where = tgt[order], where[order]
+    counts = np.bincount(tgt, minlength=n_out)
+    tab = np.full((n_out, max(int(counts.max(initial=0)), 1)), n_in, np.int64)
+    tab[tgt, np.arange(len(tgt)) - (np.cumsum(counts) - counts)[tgt]] = where
+    return tab
+
+
+def _table_sum(vals: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
+    """out[..., o] = sum_k vals[..., tab[o, k]]: a segment sum whose terms
+    are added in the table's order, whatever the device."""
+    padded = torch.nn.functional.pad(vals, (0, 1))
+    return padded[..., tab].sum(-1)
+
+
+def with_tables(ga: GroupArrays, m: int) -> GroupArrays:
+    """The group with the summation tables its bucket needs (built once,
+    on the host, from the index fields; stored on the group's device).
+    ``m`` is the number of constraints of the problem."""
+    dev = ga.C.device
+    n = ga.C.shape[-1]
+
+    def put(a):
+        return torch.as_tensor(a, device=dev)
+
+    def host(t):
+        return t.cpu().numpy()
+
+    kind = bucket(ga)
+    if kind == "diag":
+        if ga.dpos.shape[0] == 0:
+            return ga  # identity map: nothing is summed
+        return ga._replace(dtab=put(gather_table(host(ga.dpos), n, host(ga.dw) != 0.0)))
+    if kind == "support":
+        P, V, w = host(ga.spos), host(ga.sval), host(ga.lams)
+        flat = (P[:, :, :, None] * n + P[:, :, None, :]).reshape(-1)
+        live = ((w[:, :, None, None] * V[:, :, :, None] * V[:, :, None, :]) != 0.0).reshape(-1)
+        cells = np.unique(flat[live])
+        tab = gather_table(np.searchsorted(cells, flat), len(cells), live)
+        return ga._replace(scell=put(cells), stab=put(tab))
+    if kind == "slot":
+        return ga
+    g = ga.F.shape[0]
+    seg, live = host(ga.seg), host(ga.lam) != 0.0
+    R = seg.shape[1]
+    per_block = [gather_table(seg[b], m, live[b]) for b in range(g)]
+    k = max(t.shape[1] for t in per_block)
+    tabs = dict(
+        ftab=put(np.stack([np.pad(t, ((0, 0), (0, k - t.shape[1])), constant_values=R)
+                           for t in per_block])),
+        fall=put(gather_table(seg, m, live)),
+    )
+    if ga.Ad.shape[0]:
+        tabs["xtab"] = put(gather_table(host(ga.didx), m))
+        sel = np.arange(g)[:, None] == host(ga.dblk)[None, :]
+        tabs["dsel"] = put(sel).to(ga.C.dtype)
+    return ga._replace(**tabs)
+
+
 def _slot_quad(ga: GroupArrays, FX: torch.Tensor) -> torch.Tensor:
     """sum_j lams_j * <Fs_j[i], FX_j[i]> per constraint i: [m]."""
     return torch.sum(ga.lams * torch.sum(FX * ga.Fs, dim=-1), dim=0)
+
+
+def _support_quad(ga: GroupArrays, T: torch.Tensor) -> torch.Tensor:
+    """sum_j lams_j v_ji' T v_ji per constraint i, from T's entries at
+    each eigenvector's support: [m]."""
+    P, V = ga.spos, ga.sval
+    Tsup = T[P[:, :, :, None], P[:, :, None, :]]  # [r, m, c, c]
+    q = torch.einsum("jiab,jia,jib->ji", Tsup, V, V)
+    return torch.sum(ga.lams * q, dim=0)
+
+
+def _quadforms(F: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """q_r = u_r' T u_r for the rows u_r of F: [..., R]."""
+    return torch.sum((F @ T) * F, dim=-1)
+
+
+def _diag_take(ga: GroupArrays, d: torch.Tensor) -> torch.Tensor:
+    """d[..., p_i] per constraint (d itself under the identity map)."""
+    return d if ga.dpos.shape[0] == 0 else d[..., ga.dpos]
+
+
+def _lowrank_quad(ga: GroupArrays, T: torch.Tensor, m: int) -> torch.Tensor:
+    """<A_i, T_blk> over the low-rank bucket, per constraint: [m]
+    (T is [g, n, n] and symmetric)."""
+    kind = bucket(ga)
+    if kind == "diag":
+        return ga.dw * _diag_take(ga, torch.diagonal(T[0]))
+    if kind == "support":
+        return _support_quad(ga, T[0])
+    if kind == "slot":
+        return _slot_quad(ga, ga.Fs @ T[0])
+    return _table_sum((ga.lam * _quadforms(ga.F, T)).reshape(-1), ga.fall)
+
+
+def _add_dense(ga: GroupArrays, out: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """out[didx[d]] += vals[d]; didx is unique in a single-block group."""
+    if ga.xtab is not None:
+        return out + _table_sum(vals, ga.xtab)
+    return out.index_add(0, ga.didx, vals)
 
 
 def group_dual(ga: GroupArrays, dC, scal, y, dEye, hp: bool = False) -> torch.Tensor:
     """Buffer assembly B = dEye*I + scal*(A'y) + dC*C, batched [g,n,n]
     (ref sdpDenseConeIUpdateBuffer, hdsdp_conic_sdp.c:343-402).
 
-    ``hp`` computes W = sum_ja w_ja u_ja u_ja^T as one [n, rm] x [rm, n]
-    Ozaki product (ops.hpmm, ~2^-45 relative), symmetrized."""
-    _require_slot(ga)
-    r, m_, n = ga.Fs.shape
-    w = ga.lams * y[None, :]  # [r, m]
-    Ff = ga.Fs.reshape(r * m_, n)
-    wF = (w[:, :, None] * ga.Fs).reshape(r * m_, n)
-    if hp:
-        Wm = hpmm.hpmm(wF.T, Ff)
-        W = (0.5 * (Wm + Wm.T))[None]
+    ``hp`` (generic slot-major groups only) computes W = sum_ja w_ja u_ja
+    u_ja^T as one [n, rm] x [rm, n] Ozaki product (ops.hpmm, ~2^-45
+    relative), symmetrized."""
+    kind = bucket(ga)
+    g, n = ga.C.shape[0], ga.C.shape[-1]
+    if kind == "diag":
+        wy = ga.dw * y
+        dvec = wy if ga.dpos.shape[0] == 0 else _table_sum(wy, ga.dtab)
+        W = torch.diag(dvec)[None]
+    elif kind == "support":
+        V = ga.sval
+        wy = ga.lams * y[None, :]  # [r, m]
+        vals = (wy[:, :, None, None] * V[:, :, :, None] * V[:, :, None, :]).reshape(-1)
+        W = torch.zeros(n * n, dtype=vals.dtype, device=vals.device)
+        W[ga.scell] = _table_sum(vals, ga.stab)  # scell is unique
+        W = W.reshape(1, n, n)
+    elif kind == "slot":
+        r, m_, _ = ga.Fs.shape
+        w = ga.lams * y[None, :]  # [r, m]
+        Ff = ga.Fs.reshape(r * m_, n)
+        wF = (w[:, :, None] * ga.Fs).reshape(r * m_, n)
+        if hp:
+            Wm = hpmm.hpmm(wF.T, Ff)
+            W = (0.5 * (Wm + Wm.T))[None]
+        else:
+            W = (wF.T @ Ff)[None]
     else:
-        W = (wF.T @ Ff)[None]
-    if ga.Ad.shape[0]:
-        Wd = ga.Ad * y[ga.didx][:, None, None]
-        W = W.index_add(0, ga.dblk, Wd)
+        w = ga.lam * y[ga.seg]  # [g, R]
+        W = (w[:, :, None] * ga.F).mT @ ga.F
+    md = ga.Ad.shape[0]
+    if md:
+        # sum_d y_d A_d per block as one product (fixed order)
+        yd = y[ga.didx]
+        sel = yd[None, :] if ga.dsel is None else ga.dsel * yd
+        W = W + (sel @ ga.Ad.reshape(md, n * n)).reshape(g, n, n)
     eye = torch.eye(n, dtype=W.dtype, device=W.device)
     return scal * W + dC * ga.C + dEye * eye
 
@@ -123,9 +270,32 @@ def _dense_congruence(ga: GroupArrays, U: torch.Tensor):
 
 
 def _scatter_rows(didx: torch.Tensor, X: torch.Tensor, m: int) -> torch.Tensor:
-    """[m, k] matrix whose row didx[d] is X[d] (summed over duplicates)."""
+    """[m, k] matrix whose row didx[d] is X[d] (didx unique)."""
     out = torch.zeros((m,) + X.shape[1:], dtype=X.dtype, device=X.device)
     return out.index_add_(0, didx, X)
+
+
+def _dense_rhs(ga: GroupArrays, U, asinv, trsas):
+    """Adds the dense bucket's tr(A_d U) and tr(U A_d U); returns them
+    and B = U A_d U (None without a dense bucket)."""
+    if not ga.Ad.shape[0]:
+        return asinv, trsas, None
+    B, Ub = _dense_congruence(ga, U)
+    asinv = _add_dense(ga, asinv, torch.sum(ga.Ad * Ub, dim=(-1, -2)))
+    trsas = _add_dense(ga, trsas, torch.diagonal(B, dim1=-2, dim2=-1).sum(-1))
+    return asinv, trsas, B
+
+
+def _dense_m_single(ga: GroupArrays, B: torch.Tensor, Xc: torch.Tensor, m: int):
+    """M terms of a single-block group's dense bucket: dense x dense (all
+    pairs interact) and the cross rows Xc[d, i] against the low-rank part
+    of constraint i, both symmetric."""
+    md = ga.Ad.shape[0]
+    Mdd = B.reshape(md, -1) @ ga.Ad.reshape(md, -1).T  # [md, md]
+    cols = torch.zeros((md, m), dtype=B.dtype, device=B.device)
+    cols.index_add_(1, ga.didx, Mdd)
+    Mx = _scatter_rows(ga.didx, Xc, m)
+    return _scatter_rows(ga.didx, cols, m) + Mx + Mx.T
 
 
 def _slot_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool,
@@ -138,7 +308,6 @@ def _slot_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool,
     f64."""
     r, m_, n = ga.Fs.shape
     U0 = U[0]
-    md = ga.Ad.shape[0]
 
     if hp:
         FU = hpmm.hpmm(ga.Fs.reshape(r * m_, n), U0).reshape(r, m_, n)
@@ -146,17 +315,9 @@ def _slot_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool,
         FU = ga.Fs @ U0  # [r, m, n]
     asinv = _slot_quad(ga, FU)
     trsas = torch.sum(ga.lams * torch.sum(FU * FU, dim=-1), dim=0)
-    trU = torch.trace(U0)
+    asinv, trsas, B = _dense_rhs(ga, U, asinv, trsas)
 
     M = None
-    B = None
-    if md:
-        B, Ub = _dense_congruence(ga, U)
-        asinv = asinv.index_add(0, ga.didx, torch.sum(ga.Ad * Ub, dim=(-1, -2)))
-        trsas = trsas.index_add(
-            0, ga.didx, torch.diagonal(B, dim1=-2, dim2=-1).sum(-1)
-        )
-
     if with_m:
         M = torch.zeros((m, m), dtype=U.dtype, device=U.device)
         for j in range(r):
@@ -164,16 +325,133 @@ def _slot_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool,
                 T = hpmm.hpmm(FU[j], ga.Fs[k].T) if hp else FU[j] @ ga.Fs[k].T
                 T = (ga.lams[j][:, None] * ga.lams[k][None, :]) * (T * T)
                 M = M + T if k == j else M + T + T.T
-
-        if md:
-            # dense x dense (single block: all pairs interact)
-            Mdd = torch.einsum("ipq,jpq->ij", B, ga.Ad)  # [md, md]
-            cols = torch.zeros((md, m), dtype=U.dtype, device=U.device)
-            cols.index_add_(1, ga.didx, Mdd)
-            M = M + _scatter_rows(ga.didx, cols, m)
+        if B is not None:
             # dense x low-rank cross: lams_j[a] Fs_j[a]^T B_i Fs_j[a]
             Xc = torch.stack([_slot_quad(ga, ga.Fs @ Bi) for Bi in B])  # [md, m]
-            Mx = _scatter_rows(ga.didx, Xc, m)
+            M = M + _dense_m_single(ga, B, Xc, m)
+
+    return SchurOut(M=M, asinv=asinv, trSAS=trsas, trU=torch.trace(U0))
+
+
+def _diag_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool) -> SchurOut:
+    """Diagonal rank-1 bucket: A_i = w_i e_{p_i} e_{p_i}^T, so
+
+        M_ij    = w_i w_j (U_{p_i p_j})^2          (gather + square)
+        asinv_i = w_i U_{p_i p_i}
+        trsas_i = w_i (U U)_{p_i p_i} = w_i ||U[:, p_i]||^2
+
+    O(m^2 + n^2) per build against the generic slot path's O(n m^2) (ref
+    M2 rank-one quadforms on 1-nnz eigenvectors, hdsdp_conic_sdp.c:687-778).
+    Under the identity map (length-0 dpos) no gather runs.  U need only
+    be symmetric (PSDP passes X)."""
+    U0 = U[0]
+    w = ga.dw
+    ident = ga.dpos.shape[0] == 0
+
+    asinv = w * _diag_take(ga, torch.diagonal(U0))
+    trsas = w * _diag_take(ga, torch.sum(U0 * U0, dim=0))  # diag(U @ U)
+    asinv, trsas, B = _dense_rhs(ga, U, asinv, trsas)
+
+    M = None
+    if with_m:
+        Usub = U0 if ident else U0[ga.dpos][:, ga.dpos]
+        M = (w[:, None] * w[None, :]) * (Usub * Usub)
+        if B is not None:
+            # dense x diag cross: w_i B_d[p_i, p_i]
+            Xc = w[None, :] * _diag_take(ga, torch.diagonal(B, dim1=-2, dim2=-1))
+            M = M + _dense_m_single(ga, B, Xc, m)
+
+    return SchurOut(M=M, asinv=asinv, trSAS=trsas, trU=torch.trace(U0))
+
+
+def _support_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool) -> SchurOut:
+    """Bounded-support slot bucket: every eigenvector has <= c nonzeros,
+    so every pair product (Fs_j U Fs_k^T)_{i1 i2} = sum_{a,b} v_{j,i1,a}
+    v_{k,i2,b} U[p_{j,i1,a}, p_{k,i2,b}] is c^2 gathered m x m Hadamard
+    terms, no [m,n] x [n,m] product (ref sparse pairwise M5 kernels,
+    hdsdp_sdpdata.c:1711-1963).  One n^3 product (U @ U) gives the trSAS
+    row whatever m is."""
+    U0 = U[0]
+    P, V, w = ga.spos, ga.sval, ga.lams  # [r, m, c], [r, m]
+    r, m_, c = P.shape
+
+    asinv = _support_quad(ga, U0)
+    trsas = _support_quad(ga, U0 @ U0)
+    asinv, trsas, B = _dense_rhs(ga, U, asinv, trsas)
+
+    M = None
+    if with_m:
+        def pair(j, k):
+            # row side gathers rows of U, column side gathers columns of
+            # the row-gathered [m, n] block
+            T = torch.zeros((m_, m_), dtype=U.dtype, device=U.device)
+            for a in range(c):
+                G = U0[P[j, :, a]]  # [m, n]
+                for b in range(c):
+                    T = T + (V[j, :, a, None] * V[k, None, :, b]) * G[:, P[k, :, b]]
+            return T
+
+        M = torch.zeros((m, m), dtype=U.dtype, device=U.device)
+        for j in range(r):
+            for k in range(j, r):
+                T = pair(j, k)
+                T = (w[j][:, None] * w[k][None, :]) * (T * T)
+                M = M + T if k == j else M + T + T.T
+        if B is not None:
+            # dense x support cross: w_ji v' B_d v at each support
+            Xc = torch.stack([_support_quad(ga, Bi) for Bi in B])  # [md, m]
+            M = M + _dense_m_single(ga, B, Xc, m)
+
+    return SchurOut(M=M, asinv=asinv, trSAS=trsas, trU=torch.trace(U0))
+
+
+def accumulate_m(ga: GroupArrays, Q: torch.Tensor, m: int) -> torch.Tensor:
+    """M[i, j] = sum over blocks b and slots r of i, s of j in b of
+    Q[b, r, s], for the flat layout's pairwise terms Q [g, R, R]: first
+    the columns of every block by constraint, then the rows of all blocks
+    together, each a fixed-order table sum (the JAX package contracts
+    with [g, R, m] one-hot operators instead, O(R^2 m))."""
+    g, R, _ = Q.shape
+    k = ga.ftab.shape[-1]
+    idx = ga.ftab.reshape(g, 1, m * k).expand(g, R, m * k)
+    Qp = torch.nn.functional.pad(Q, (0, 1))
+    T = torch.gather(Qp, 2, idx).reshape(g, R, m, k).sum(-1)  # [g, R, m]
+    return _table_sum(T.reshape(g * R, m).T, ga.fall).T
+
+
+def _flat_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool) -> SchurOut:
+    """Flat (multi-block) Schur contribution: W = F U F^T per block,
+    Q = (lam lam^T) .* W^2 summed into M by constraint; dense coefficients
+    interact only within their own block."""
+    g, R, n = ga.F.shape
+    md = ga.Ad.shape[0]
+
+    FU = ga.F @ U  # [g, R, n]
+    t_asinv = ga.lam * torch.sum(FU * ga.F, dim=-1)  # lam * u'Uu
+    t_trsas = ga.lam * torch.sum(FU * FU, dim=-1)  # lam * ||Uu||^2
+    asinv = _table_sum(t_asinv.reshape(-1), ga.fall)
+    trsas = _table_sum(t_trsas.reshape(-1), ga.fall)
+    asinv, trsas, B = _dense_rhs(ga, U, asinv, trsas)
+    trU = torch.diagonal(U, dim1=-2, dim2=-1).sum()
+
+    M = None
+    if with_m:
+        W = FU @ ga.F.mT  # F U F^T, [g, R, R]
+        Q = (ga.lam[:, :, None] * ga.lam[:, None, :]) * (W * W)
+        M = accumulate_m(ga, Q, m)
+        if md:
+            # dense x dense within the same block
+            same = (ga.dblk[:, None] == ga.dblk[None, :]).to(U.dtype)
+            Mdd = (B.reshape(md, -1) @ ga.Ad.reshape(md, -1).T) * same
+            M = M + _table_sum(_table_sum(Mdd, ga.xtab).T, ga.xtab).T
+            # dense x low-rank cross: lam_r * u_r^T B_d u_r, same block
+            cross = ga.lam[ga.dblk] * _quadforms(ga.F[ga.dblk], B)  # [md, R]
+            k = ga.ftab.shape[-1]
+            cols = torch.gather(
+                torch.nn.functional.pad(cross, (0, 1)), 1,
+                ga.ftab[ga.dblk].reshape(md, m * k),
+            ).reshape(md, m, k).sum(-1)  # [md, m]
+            Mx = _table_sum(cols.T, ga.xtab).T
             M = M + Mx + Mx.T
 
     return SchurOut(M=M, asinv=asinv, trSAS=trsas, trU=trU)
@@ -181,37 +459,37 @@ def _slot_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool,
 
 def group_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool = True,
                 hp: bool = False) -> SchurOut:
-    """Schur contribution of one group given U = S^-1 [g,n,n]."""
-    _require_slot(ga)
-    return _slot_schur(ga, U, m, with_m, hp=hp)
+    """Schur contribution of one group given U = S^-1 [g,n,n] (or, for
+    PSDP, any symmetric U).  ``hp`` reaches the generic slot-major bucket
+    only; the gather buckets and the flat layout ignore it."""
+    kind = bucket(ga)
+    if kind == "diag":
+        return _diag_schur(ga, U, m, with_m)
+    if kind == "support":
+        return _support_schur(ga, U, m, with_m)
+    if kind == "slot":
+        return _slot_schur(ga, U, m, with_m, hp=hp)
+    return _flat_schur(ga, U, m, with_m)
 
 
 def group_hsd(ga: GroupArrays, U: torch.Tensor, m: int) -> HSDOut:
     """Self-dual embedding components (ref sdpDenseConeIGetHSDComponents,
     hdsdp_conic_sdp.c:987-1033), via the dense-C M3 path."""
-    _require_slot(ga)
     T = U @ ga.C @ U  # U C U
     csinv = torch.sum(ga.C * U)
     csinvcsinv = torch.sum(ga.C * T)
     trUCU = torch.diagonal(T, dim1=-2, dim2=-1).sum()
-    asinvcsinv = _slot_quad(ga, ga.Fs @ T[0])
-    if ga.Ad.shape[0]:
-        Tb = T[ga.dblk]
-        asinvcsinv = asinvcsinv.index_add(
-            0, ga.didx, torch.sum(ga.Ad * Tb, dim=(-1, -2))
-        )
     return HSDOut(
-        asinvcsinv=asinvcsinv, csinv=csinv, csinvcsinv=csinvcsinv, trUCU=trUCU
+        asinvcsinv=group_atx(ga, T, m), csinv=csinv, csinvcsinv=csinvcsinv,
+        trUCU=trUCU,
     )
 
 
 def group_atx(ga: GroupArrays, X: torch.Tensor, m: int) -> torch.Tensor:
-    """A(X): per-constraint traces <A_i, X_blk> given X [g,n,n]."""
-    _require_slot(ga)
-    out = _slot_quad(ga, ga.Fs @ X[0])
+    """A(X): per-constraint traces <A_i, X_blk> given symmetric X [g,n,n]."""
+    out = _lowrank_quad(ga, X, m)
     if ga.Ad.shape[0]:
-        Xb = X[ga.dblk]
-        out = out.index_add(0, ga.didx, torch.sum(ga.Ad * Xb, dim=(-1, -2)))
+        out = _add_dense(ga, out, torch.sum(ga.Ad * X[ga.dblk], dim=(-1, -2)))
     return out
 
 

@@ -16,12 +16,16 @@ is implicit and takes part in Phase A / B but not in the HSD method.
 
 Control flow runs on the host; every ``bool(...)``/``float(...)`` of a
 device tensor below is a sync point, exactly where the JAX host loop reads
-a device value back.  The Schur system is dense (m x m) and factored by
-Cholesky with a regularization ladder and an LU fallback.
+a device value back.  The Schur system is dense (m x m): factored by
+Cholesky with a regularization ladder and an LU fallback, or, from
+``kkt_cg_threshold`` rows on, solved by AdaptiveCG (ops.cg: refinement
+against a stale mixed-precision factor) with that ladder as its
+escalation.  Near convergence phase B hands one-cone problems with
+n < m/3 to the PSDP primal refinement (solver.psdp).
 
 Not ported (raise NotImplementedError): the fused whole-phase programs,
-the matrix-free operator mode, AdaptiveCG, the double-single factors,
-PSDP and the multi-device mesh.
+the matrix-free operator mode, the double-single factors and the
+multi-device mesh.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 
 from hdsdp_tpu_torch.models.problem import SDPProblem
 from hdsdp_tpu_torch.ops import chol as chol_ops
+from hdsdp_tpu_torch.ops.cg import AdaptiveCG
 from hdsdp_tpu_torch.ops.ratio import vector_ratio_test
 from hdsdp_tpu_torch.solver.cones import ConeSystem
 from hdsdp_tpu_torch.solver.params import Params, adjust_params
@@ -71,8 +76,6 @@ def _check_supported(params: Params, m: int) -> None:
         raise NotImplementedError(f"fused={p.fused!r}: the fused programs")
     if p.kkt_mode == "free" or (p.kkt_mode == "auto" and m >= p.kkt_free_threshold):
         raise NotImplementedError("operator mode (matrix-free Schur)")
-    if p.kkt_solver == "cg" or (p.kkt_solver == "auto" and m >= p.kkt_cg_threshold):
-        raise NotImplementedError("AdaptiveCG")
     if p.kkt_fp == "dd" or p.cone_fp == "dd":
         raise NotImplementedError("ddchol")
     if p.dtype != "float64":
@@ -143,7 +146,9 @@ class DualIPM:
 
         # KKT exports (device)
         self.kkt = None
-        self.Mfac = None  # ("chol", L) or ("lu", (LU, pivots))
+        self.Mfac = None  # ("chol", L), ("lu", (LU, pivots)) or ("cg", M)
+        self._cg: Optional[AdaptiveCG] = None  # made at the first CG system
+        self.psdp = None  # the PSDPRefiner that ended the solve, if one did
         self.d1 = self.d2 = self.d3 = self.d4 = None
 
         # primal solution makers (ref def_hdsdp.h:107-118)
@@ -276,21 +281,51 @@ class DualIPM:
                 return ("chol", L)
         return ("lu", torch.linalg.lu_factor(M))
 
-    def factor_kkt(self) -> None:
-        """Factor the dense Schur system (direct ladder)."""
+    def _direct_factor(self, M) -> None:
+        self.Mfac = self._f64_factor_ladder(M)
+
+    def factor_kkt(self, force_direct: bool = False) -> None:
+        """Factor (or defer) the Schur system.  With kkt_solver="cg", or
+        "auto" from kkt_cg_threshold rows on, the factorization is
+        deferred: solves go through AdaptiveCG (ref conjGradSolve + ADPCG
+        policy) and escalate to the direct ladder on CG failure.
+
+        ``force_direct`` overrides the CG policy for factor-once /
+        solve-many uses (PSDP factors its X-weighted KKT once and then
+        performs ~100 solves against it, ref hdsdp_psdp.c:203-207; exact
+        solves there decide the refinement step quality)."""
         self._factor_stats["n_factor"] += 1
-        self.Mfac = self._f64_factor_ladder(self.kkt.M)
+        M = self.kkt.M
+        p = self.params
+        use_cg = not force_direct and (
+            p.kkt_solver == "cg"
+            or (p.kkt_solver == "auto" and self.m >= p.kkt_cg_threshold)
+        )
+        if use_cg:
+            if self._cg is None:
+                self._cg = AdaptiveCG(abs_tol=1e-10, rel_tol=1e-10)
+            self._cg.update(M)
+            self.Mfac = ("cg", M)
+            return
+        self._direct_factor(M)
 
     def release_solve_buffers(self) -> None:
         """Drop per-iteration device buffers before the final DIMACS
         check: everything the check and the public API need is recomputed
-        from (y, makers, cone data)."""
+        from (y, makers, cone data).  The CG policy's evidence (factor and
+        solve counts, its call ledger) is kept in the factor stats; the
+        object itself holds a stale [m, m] preconditioner and goes."""
         self.S = self.s_lp = self.L = None
         self.Schk = self.s_lp_chk = self.Lchk = None
         self.dS = self.ds_lp = None
         self.kkt = None
         self.Mfac = None
         self.d1 = self.d2 = self.d3 = self.d4 = None
+        if self._cg is not None:
+            self._factor_stats["cg_n_factor"] = self._cg.n_factor
+            self._factor_stats["cg_n_solve"] = self._cg.n_solve
+            self._factor_stats["cg_summary"] = self._cg.summary()
+            self._cg = None
         self.cones._lz_warm = None
 
     def _solve_mat(self, B: torch.Tensor) -> torch.Tensor:
@@ -302,10 +337,27 @@ class DualIPM:
 
     def solve_kkt(self, rhs: torch.Tensor) -> torch.Tensor:
         self._factor_stats["n_solve"] += 1
+        kind, fac = self.Mfac
+        if kind == "cg":
+            x, ok = self._cg.solve_checked(fac, rhs)
+            if ok:
+                return x
+            # CG failed even with a fresh Cholesky preconditioner:
+            # escalate to the direct ladder (ref hdsdp_linsolver.c:1827-1857)
+            self._direct_factor(fac)
+            return self.solve_kkt(rhs)
         return self._solve_mat(rhs[:, None])[:, 0]
 
     def solve_kkt_multi(self, rhs_list):
         """Batch several right-hand sides into one solve."""
+        kind, fac = self.Mfac
+        if kind == "cg":
+            self._factor_stats["n_solve"] += len(rhs_list)
+            X, ok = self._cg.solve_mat_checked(fac, torch.stack(rhs_list, dim=1))
+            if ok:
+                return [X[:, i] for i in range(len(rhs_list))]
+            self._direct_factor(fac)
+            return [self.solve_kkt(r) for r in rhs_list]
         self._factor_stats["n_solve"] += len(rhs_list)
         sols = self._solve_mat(torch.stack(rhs_list, dim=1))
         return [sols[:, i] for i in range(len(rhs_list))]
@@ -814,6 +866,7 @@ class DualIPM:
         force_detect = True
         n_internal = 0
         p_obj_start = self.p_obj_internal
+        use_psdp = p.psdp
 
         self.log.header("potential")
 
@@ -865,9 +918,27 @@ class DualIPM:
                 (self.d_step == 1.0 or self.mu < 1e-05)
                 and self.p_infeas < 1e-06
                 and self.comp < (abs(self.p_obj_val) + abs(self.d_obj_val) + 1.0) * 0.1
-                and p.psdp
+                and use_psdp
             ):
-                raise NotImplementedError("PSDP")
+                from hdsdp_tpu_torch.solver.psdp import PSDPRefiner
+
+                refiner = PSDPRefiner(self)
+                refined = refiner.optimize()
+                self._factor_stats["psdp_runs"] = self._factor_stats.get("psdp_runs", 0) + 1
+                self._factor_stats["psdp_iters"] = (
+                    self._factor_stats.get("psdp_iters", 0) + refiner.n_iter)
+                if refined:
+                    # A clean PSDP return ends the solve even when not
+                    # converged to tolerance (ref hdsdp_algo.c:1806-1814:
+                    # retcode OK -> break; the nBadIter/compl-growth exits
+                    # return OK).  The DIMACS gate decides the final
+                    # status from the refined (X, y) pair; resuming
+                    # potential reduction here would move y while X stays
+                    # frozen and can drive comp through zero, passing the
+                    # comp test with a crude primal.
+                    self.psdp = refiner
+                    break
+                use_psdp = 0
 
             if self.n_small_step > 3:
                 self.status = NUMERICAL
@@ -1084,6 +1155,7 @@ class DualIPM:
     # ------------------------------------------------------------------
     def solve(self, d_only: bool = False):
         try:
+            self.psdp = None
             self.phase_a(d_only)
             if self.status == SUSPECT_INFEAS_OR_UNBOUNDED:
                 self.log.info("\nInfeasible method stops due to suspected infeasibility")

@@ -10,8 +10,8 @@ Port of the JAX package's solver/cones.py for the dense-M host loop
   logdet    ~ HConeGetLogBarrier
 
 The presolve bucket choice is copied exactly from the JAX package, so
-both packages pick the same layout for every family; the Schur functions
-then raise NotImplementedError for the layouts not ported yet.
+both packages pick the same layout for every family (diag, bounded
+support, generic slot-major, or flat for multi-block groups).
 """
 
 from __future__ import annotations
@@ -57,20 +57,27 @@ def _tensor(x, device, index: bool):
     return torch.tensor(np.asarray(x), dtype=dt, device=device)
 
 
-def groups_from_numpy(groups, lp, device):
+def groups_from_numpy(groups, lp, device, m: Optional[int] = None):
     """Port arrays from host arrays of the same layout.
 
     ``groups``: a sequence of objects with ``_asdict()`` (e.g. the JAX
     package's GroupArrays) or dicts, whose fields convert with
-    ``np.asarray``; ``lp``: the same for LPArrays, or None.  Returns
-    (tuple of GroupArrays, LPArrays or None) on ``device``."""
+    ``np.asarray`` (every bucket: the diag, support and slot-major fields,
+    a length-0 ``dpos`` kept as the identity-map marker, and flat groups
+    of any g); ``lp``: the same for LPArrays, or None; ``m``: the number
+    of constraints, needed when a group is flat.  Returns (tuple of
+    GroupArrays with their summation tables, LPArrays or None) on
+    ``device``."""
     dev = torch.device(device)
     out = []
     for g in groups:
         d = g._asdict() if hasattr(g, "_asdict") else dict(g)
-        out.append(GroupArrays(**{
+        ga = GroupArrays(**{
             k: _tensor(v, dev, k in _INDEX_FIELDS) for k, v in d.items()
-        }))
+        })
+        if ga.lams is None and m is None:
+            raise ValueError("a flat group needs m")
+        out.append(schur_ops.with_tables(ga, ga.lams.shape[1] if m is None else m))
     lp_t = None
     if lp is not None:
         d = lp._asdict() if hasattr(lp, "_asdict") else dict(lp)
@@ -215,11 +222,17 @@ def ctx(groups, lp, X_list, x_lp):
 class ConeSystem:
     """Holds the device-side cone data and the cone operations."""
 
-    def __init__(self, prob: SDPProblem, device, obj_scal: float = 1.0):
-        """Single-block groups are stored slot-major with the diag/support
-        specializations, multi-block groups flat: the JAX package's
-        default layout ("auto")."""
+    def __init__(self, prob: SDPProblem, device, obj_scal: float = 1.0,
+                 layout: str = "auto"):
+        """layout: "auto" stores single-block groups slot-major with the
+        diag/support gather specializations and multi-block groups flat;
+        "slot" keeps slot-major but disables the specializations, and
+        "flat" forces the packed-slot layout on every group (both for
+        holding one bucket against another)."""
+        if layout not in ("auto", "slot", "flat"):
+            raise ValueError(f"layout={layout!r}")
         self.m = prob.m
+        specialize = layout == "auto"
         self.device = torch.device(device)
         self.dtype = DTYPE
         dev = self.device
@@ -248,7 +261,9 @@ class ConeSystem:
             dpos = dw = None
             spos = sval = None
             nnz_rows = np.count_nonzero(Fs, axis=2)  # [r, m]
-            if r == 1 and np.all(nnz_rows[0] <= 1):
+            if not specialize:
+                pass
+            elif r == 1 and np.all(nnz_rows[0] <= 1):
                 # DIAGONAL specialization (maxG*/torus* structure)
                 p = np.argmax(np.abs(Fs[0]), axis=1)
                 v = Fs[0][np.arange(m), p]
@@ -290,7 +305,7 @@ class ConeSystem:
                 didx=_tensor(g.didx, dev, True),
                 dblk=_tensor(g.dblk, dev, True),
             )
-            if g.nblk == 1:
+            if g.nblk == 1 and layout != "flat":
                 Fs, lams, dpos, dw, spos, sval = _slot_major(g)
                 return GroupArrays(
                     F=torch.zeros((1, 1, g.dim), dtype=DTYPE, device=dev),
@@ -314,8 +329,10 @@ class ConeSystem:
             )
 
         self.groups: Tuple[GroupArrays, ...] = tuple(
-            _make_group(g) for g in prob.groups
+            schur_ops.with_tables(_make_group(g), prob.m) for g in prob.groups
         )
+        self.group_dims = [g.dim for g in prob.groups]
+        self.group_nblk = [g.nblk for g in prob.groups]
 
         self.has_lp = prob.lp is not None
         self.lp = (
@@ -326,6 +343,7 @@ class ConeSystem:
 
         # sum of SDP cone dims + LP dims (bound cone counted by the solver)
         self.sum_cone_dims = prob.sum_cone_dims
+        self.n_cones = len(prob.block_dims) + (1 if self.has_lp else 0)
         self._lz_warm = None
 
     # Ozaki-sliced Schur assembly for slot-major groups (Params.kkt_hp)
@@ -348,6 +366,10 @@ class ConeSystem:
     def build_kkt(self, L, s_lp, Rd, kind: str) -> KKTOut:
         return build_kkt(self.groups, self.lp, L, s_lp, Rd, self.m, kind,
                          hp=self.kkt_hp)
+
+    def inverses(self, L):
+        """U = S^-1 per group."""
+        return inverses(L, hp=self.kkt_hp)
 
     def interior_check(self, dC, scal, y, dEye, tau, lo, up):
         return interior_check(self.groups, self.lp, dC, scal, y, dEye, tau,

@@ -103,11 +103,15 @@ def _batch_min_eval(Xg: torch.Tensor) -> torch.Tensor:
     quotient (error O(||X|| sin^2 theta), far below the 1e-2 DIMACS gate,
     ref hdsdp.c:905-921).  Huge blocks: the Lanczos estimate."""
     n = Xg.shape[-1]
-    if n < _EXACT_EIG_DIM or Xg.dtype != torch.float64:
-        return torch.min(torch.linalg.eigvalsh(Xg))
-    if n >= _LANCZOS_EIG_DIM:
+    if n >= _LANCZOS_EIG_DIM and Xg.dtype == torch.float64:
         return torch.min(torch.stack([_lanczos_min_one(x) for x in Xg]))
-    _, V = torch.linalg.eigh(Xg.to(torch.float32))
+    # the eigensolvers see (X + X^T)/2, as jnp.linalg.eigvalsh and eigh do
+    # by default: a PSDP-refined X carries a rounding asymmetry of the
+    # size of its smallest eigenvalues, and LAPACK reads one triangle
+    Xs = 0.5 * (Xg + Xg.mT)
+    if n < _EXACT_EIG_DIM or Xg.dtype != torch.float64:
+        return torch.min(torch.linalg.eigvalsh(Xs))
+    _, V = torch.linalg.eigh(Xs.to(torch.float32))
     v = V[..., :, 0].to(Xg.dtype)
     v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
     return torch.min(torch.einsum("...i,...ij,...j->...", v, Xg, v))
@@ -274,26 +278,8 @@ def _errors_from_parts(ipm, p_obj, d_obj, compl, min_eval, p_inf_norm):
     return errs
 
 
-def _dimacs_errors(ipm, maker) -> Optional[np.ndarray]:
-    cones = ipm.cones
-    out = _consistent_maker_solve(ipm, maker)
-    if out is None:
-        return None
-    Us, sbar_lp, dy = out
-    # the check assembles in plain f64, as the JAX package's does
-    X_list, x_lp = _recover(cones, Us, sbar_lp, maker.mu, dy, hp=False)
-    S, s_lp = cone_ops.assemble(
-        cones.groups, cones.lp, 1.0, -1.0, ipm.y, -ipm.Rd + ipm.perturb
-    )
-    d_obj = float(ipm.b @ ipm.y)
-    ax = cones.atx(X_list, x_lp)
-    p_obj = float(cones.ctx(X_list, x_lp))
-    compl = 0.0
-    for Xg, Sg in zip(X_list, S):
-        compl += float(torch.sum(Xg * Sg))
-    if x_lp is not None:
-        compl += float(x_lp @ s_lp)
-
+def _min_eval(X_list, x_lp) -> float:
+    """Smallest eigenvalue over the primal blocks and the LP primal."""
     min_eval = np.inf
     for Xg in X_list:
         me = float(_batch_min_eval(Xg))
@@ -306,5 +292,31 @@ def _dimacs_errors(ipm, maker) -> Optional[np.ndarray]:
             min_eval = min(min_eval, me)
     if x_lp is not None:
         min_eval = min(min_eval, float(torch.min(x_lp)))
+    return min_eval
+
+
+def _dimacs_errors(ipm, maker) -> Optional[np.ndarray]:
+    cones = ipm.cones
+    if ipm.psdp is not None:  # set only by a refinement that returned its X
+        # PSDP-refined primal: the errors of the explicit X
+        X_list, x_lp = ipm.psdp.get_primal()
+    else:
+        out = _consistent_maker_solve(ipm, maker)
+        if out is None:
+            return None
+        Us, sbar_lp, dy = out
+        # the check assembles in plain f64, as the JAX package's does
+        X_list, x_lp = _recover(cones, Us, sbar_lp, maker.mu, dy, hp=False)
+    S, s_lp = cone_ops.assemble(
+        cones.groups, cones.lp, 1.0, -1.0, ipm.y, -ipm.Rd + ipm.perturb
+    )
+    d_obj = float(ipm.b @ ipm.y)
+    ax = cones.atx(X_list, x_lp)
+    p_obj = float(cones.ctx(X_list, x_lp))
+    compl = 0.0
+    for Xg, Sg in zip(X_list, S):
+        compl += float(torch.sum(Xg * Sg))
+    if x_lp is not None:
+        compl += float(x_lp @ s_lp)
     p_inf_norm = float(torch.linalg.vector_norm(ax - ipm.b))
-    return _errors_from_parts(ipm, p_obj, d_obj, compl, min_eval, p_inf_norm)
+    return _errors_from_parts(ipm, p_obj, d_obj, compl, _min_eval(X_list, x_lp), p_inf_norm)

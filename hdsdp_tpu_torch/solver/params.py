@@ -55,8 +55,9 @@ class Params:
     fused_max_m: int = 512
     fused_max_n: int = 256
     fused_hbm_budget: float = 12e9
-    # Schur system backend: "direct" dense Cholesky; "cg" (AdaptiveCG) is
-    # not ported, so "cg", or "auto" at m >= kkt_cg_threshold, raises
+    # Schur system backend: "direct" dense Cholesky; "cg" AdaptiveCG
+    # (refinement against a stale mixed-precision factor, ops.cg), which
+    # "auto" takes from kkt_cg_threshold rows on
     kkt_solver: str = "auto"
     kkt_cg_threshold: int = 4096
     # matrix-free Schur operator: not ported; "free", or "auto" at m >=

@@ -109,13 +109,16 @@ class HDSDPSolver:
         if self.ipm is None:
             raise RuntimeError("call optimize() first")
         ipm = self.ipm
-        maker = ipm.maker_acc if ipm.maker_acc.mu > 0.0 else ipm.maker_inacc
-        if maker.mu <= 0.0:
-            return None
-        rec = dimacs.recover_primal(ipm, maker)
-        if rec is None:
-            return None
-        X_groups, x_lp = rec
+        if ipm.psdp is not None:  # set only by a refinement that returned its X
+            X_groups, x_lp = ipm.psdp.get_primal()
+        else:
+            maker = ipm.maker_acc if ipm.maker_acc.mu > 0.0 else ipm.maker_inacc
+            if maker.mu <= 0.0:
+                return None
+            rec = dimacs.recover_primal(ipm, maker)
+            if rec is None:
+                return None
+            X_groups, x_lp = rec
         X_by_block = [None] * len(self.prob.block_dims)
         for grp, Xg in zip(self.prob.groups, X_groups):
             for slot, ib in enumerate(grp.block_ids):

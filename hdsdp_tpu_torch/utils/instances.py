@@ -1,0 +1,35 @@
+"""The named instances that the card-side scripts solve (``chip_smoke.py``
+at the repository root and ``utils.stage_profile``): synthetic problems at
+the sizes SDPLIB publishes for their family, nothing cut.
+
+    name: (generator in models.synthetic, its arguments, solver overrides)
+"""
+
+from __future__ import annotations
+
+from hdsdp_tpu_torch.io.sdpa import write_sdpa
+from hdsdp_tpu_torch.models import synthetic
+
+INSTANCES = {
+    # m = 501, one 500^2 block: slot-major bucket + a dense row, Ozaki assembly
+    "gpp500": ("gpp_sdpa", dict(n=500, seed=0), dict(kkt_hp="on")),
+    # m = 1000, one 1000^2 block: diag bucket, identity map
+    "maxG51": ("maxcut_sdpa", dict(n=1000, seed=0), {}),
+    # m = 3375, one 3375^2 block: diag bucket at the largest direct-factor size
+    "torusg3-15": ("torus_sdpa", dict(side=15, pm=False, seed=0), {}),
+    # m = 4375, one 300^2 block: support bucket + dense identity row,
+    # AdaptiveCG (m >= 4096) and PSDP (300 < 4375 / 3)
+    "theta6": ("theta_sdpa", dict(n=300, n_edges=4374, seed=0), {}),
+    # m = 5000, one 5000^2 block: diag bucket + AdaptiveCG
+    "maxG55": ("maxcut_sdpa", dict(n=5000, seed=0), {}),
+    # m = 1540, three 55^2 blocks: flat bucket, g = 3
+    "control11": ("control_sdpa", dict(k=55, n_sys=2, seed=0), {}),
+}
+
+
+def write_instance(name: str, path: str) -> dict:
+    """Write the named instance to ``path`` in SDPA format; returns the
+    solver overrides to pass to ``solve_sdpa_file``."""
+    gen, kw, overrides = INSTANCES[name]
+    write_sdpa(getattr(synthetic, gen)(**kw), path)
+    return dict(overrides)

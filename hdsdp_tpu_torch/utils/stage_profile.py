@@ -1,22 +1,31 @@
 """Where a solve's time goes, stage by stage, on one CUDA card.
 
-    python -m hdsdp_tpu_torch.utils.stage_profile [--out FILE]
+    python -m hdsdp_tpu_torch.utils.stage_profile [NAME] [--out FILE]
 
-Solves the gpp instance ``gpp_sdpa(n=500, seed=0)`` with ``kkt_hp="on"``
-through ``solve_sdpa_file`` once to warm up, then five times with host
-timers around the cone
-system's stages (``ConeSystem`` methods, the M factor and solves of
-``DualIPM``, the DIMACS check), then once more under ``torch.profiler`` to
-count what ran on the device.  It reports:
+NAME is one of the instances of ``utils.instances`` (default ``gpp500``;
+also ``maxG51``, ``torusg3-15``, ``theta6``, ``maxG55``, ``control11``),
+solved through ``solve_sdpa_file`` with that instance's overrides: once to
+warm up, then five times (gpp500) or three times (the larger ones) with
+host timers around the cone system's stages (``ConeSystem`` methods, the M
+factor and solves of ``DualIPM``, the PSDP refiner, the DIMACS check), then
+once with CUDA events around the parts of the KKT build, then once more
+under ``torch.profiler`` to count what ran on the device.  It reports:
 
   - the wall time of every timed solve (host clock, ending in a device
     sync) and, for the median solve, each stage's calls, host milliseconds
     and share of the wall; what no timer covers is the host loop itself;
+    the solve's peak device memory and its factor statistics (with
+    AdaptiveCG's call ledger where it ran, and PSDP's iterations);
+  - from the event-timed solve: the device milliseconds between the start
+    and the end of every ``chol_inverse``, ``group_schur`` and
+    ``group_dual`` call (idle gaps of the device inside a call included),
+    and the most device memory one call held beyond what was allocated
+    when it began (its temporaries and its result);
   - from the profiled solve: the number of device kernels (every profiler
     event on the device that is not a memory copy or memset) in total and
-    per iteration, the device-to-host copies, the device's busy time as
-    the union of the kernels' intervals, and the kernels that took most
-    device time, by name;
+    per iteration, the device-to-host copies (the host's reads), the
+    device's busy time as the union of the kernels' intervals, and the
+    kernels that took most device time, by name;
   - the launches of the port's own CUDA kernels (their wrappers' counters).
 
 The result is printed as one JSON object, and written to ``--out`` when
@@ -37,8 +46,6 @@ import tempfile
 import time
 from collections import defaultdict
 
-N, REPS, KKT_HP = 500, 5, "on"  # the one configuration measured so far
-
 STAGES = {  # report name -> (owner, method)
     "assemble": ("cones", "assemble"),
     "psd_factor": ("cones", "factor"),
@@ -48,9 +55,15 @@ STAGES = {  # report name -> (owner, method)
     "ratio_test": ("cones", "ratio_test"),
     "add_step_check": ("cones", "add_step_check"),
     "m_factor": ("ipm", "factor_kkt"),
-    "m_solve": ("ipm", "_solve_mat"),
+    "m_solve": ("ipm", "solve_kkt"),
+    "m_solve_multi": ("ipm", "solve_kkt_multi"),
+    "psdp": ("psdp", "optimize"),
     "dimacs_check": ("dimacs", "check_solution"),
 }
+
+# parts of the KKT build (and the dual assembly) timed with CUDA events
+PARTS = {"chol_inverse": ("chol", "chol_inverse"), "group_schur": ("schur", "group_schur"),
+         "group_dual": ("schur", "group_dual")}
 
 
 def _install_timers(owners, acc):
@@ -85,6 +98,38 @@ def _install_timers(owners, acc):
     return undo
 
 
+def _install_events(modules, records, torch):
+    """Wrap each part so that every call records a pair of CUDA events and
+    the device memory it held beyond its start.  Returns the undo."""
+    saved = []
+    for part, (owner, name) in PARTS.items():
+        target = modules[owner]
+        fn = getattr(target, name)
+        saved.append((target, name, fn))
+
+        def timed(*args, _fn=fn, _part=part, **kwargs):
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = _fn(*args, **kwargs)
+            end.record()
+            rec = records[_part]
+            rec["events"].append((start, end))
+            rec["peak_extra_bytes"] = max(rec["peak_extra_bytes"],
+                                          torch.cuda.max_memory_allocated() - base)
+            return out
+
+        setattr(target, name, timed)
+
+    def undo():
+        for target, name, fn in saved:
+            setattr(target, name, fn)
+
+    return undo
+
+
 def _union_length(intervals):
     """Length of the union of (start, end) intervals, in their unit."""
     busy, cur_s, cur_e = 0.0, None, None
@@ -101,7 +146,10 @@ def _union_length(intervals):
 
 
 def main(argv=None) -> int:
+    from hdsdp_tpu_torch.utils.instances import INSTANCES, write_instance
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("name", nargs="?", default="gpp500", choices=sorted(INSTANCES))
     ap.add_argument("--out", default=None, help="also write the JSON to this file")
     args = ap.parse_args(argv)
 
@@ -113,48 +161,62 @@ def main(argv=None) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from hdsdp_tpu_torch.io.sdpa import write_sdpa
-    from hdsdp_tpu_torch.models.synthetic import gpp_sdpa
-    from hdsdp_tpu_torch.ops import hpmm
+    from hdsdp_tpu_torch.ops import chol, hpmm, schur
     from hdsdp_tpu_torch.solver import dimacs
     from hdsdp_tpu_torch.solver.algo import DualIPM
     from hdsdp_tpu_torch.solver.cones import ConeSystem
+    from hdsdp_tpu_torch.solver.psdp import PSDPRefiner
     from hdsdp_tpu_torch.solver.solver import solve_sdpa_file
 
-    owners = {"cones": ConeSystem, "ipm": DualIPM, "dimacs": dimacs}
+    owners = {"cones": ConeSystem, "ipm": DualIPM, "dimacs": dimacs, "psdp": PSDPRefiner}
+    reps = 5 if args.name == "gpp500" else 3
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
 
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "gpp.dat-s")
-        write_sdpa(gpp_sdpa(n=N, seed=0), path)
+        path = os.path.join(tmp, args.name + ".dat-s")
+        overrides = write_instance(args.name, path)
 
         def solve():
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            r = solve_sdpa_file(path, device="cuda", kkt_hp=KKT_HP, verbose=False)
+            r = solve_sdpa_file(path, device="cuda", verbose=False, **overrides)
             torch.cuda.synchronize()
             return r, time.perf_counter() - t0
 
         r, first_wall = solve()  # builds the kernels, starts the libraries
         runs = []
-        for _ in range(REPS):
+        for _ in range(reps):
             acc = defaultdict(lambda: [0, 0.0])
             undo = _install_timers(owners, acc)
             try:
                 r, wall = solve()
             finally:
                 undo()
-            runs.append((wall, {k: list(v) for k, v in acc.items()}))
+            runs.append((wall, {k: list(v) for k, v in acc.items()},
+                         torch.cuda.max_memory_allocated()))
+        records = {p: {"events": [], "peak_extra_bytes": 0} for p in PARTS}
+        undo = _install_events({"chol": chol, "schur": schur}, records, torch)
+        try:
+            r, event_wall = solve()
+        finally:
+            undo()
+        parts = {
+            p: {"calls": len(rec["events"]),
+                "device_ms": sum(s.elapsed_time(e) for s, e in rec["events"]),
+                "peak_extra_bytes": rec["peak_extra_bytes"]}
+            for p, rec in records.items()
+        }
         hpmm.KERNEL_LAUNCHES = hpmm.SLICE_LAUNCHES = 0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             r, prof_wall = solve()
         own = {"hpmm_pairs": hpmm.KERNEL_LAUNCHES, "hpmm_slice": hpmm.SLICE_LAUNCHES}
 
-    walls = [w for w, _ in runs]
-    med_wall, med_acc = sorted(runs, key=lambda x: x[0])[len(runs) // 2]
+    walls = [w for w, _, _ in runs]
+    med_wall, med_acc, med_peak = sorted(runs, key=lambda x: x[0])[len(runs) // 2]
     stages = {
         s: {"calls": c, "host_ms": 1e3 * t, "share": t / med_wall}
         for s, (c, t) in sorted(med_acc.items(), key=lambda kv: -kv[1][1])
@@ -177,15 +239,22 @@ def main(argv=None) -> int:
         by_name[short][1] += (ev.time_range.end - ev.time_range.start) / 1e3
     busy = _union_length(kernels) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    gen, kw, _ = INSTANCES[args.name]
     out = {
         "card": card,
         "torch": torch.__version__,
-        "instance": f"gpp_sdpa(n={N}, seed=0), kkt_hp={KKT_HP}",
+        "instance": f"{args.name}: {gen}({', '.join(f'{k}={v}' for k, v in kw.items())})"
+                    + "".join(f", {k}={v}" for k, v in overrides.items()),
+        "m": int(r.y.shape[0]),
         "status": r.status, "iters": r.n_iters, "d_obj": r.d_obj,
+        "dimacs_max": float(abs(r.dimacs).max()),
+        "factor_stats": r.stats,
         "first_solve_wall_s": first_wall,
         "warm_walls_s": walls,
         "warm_wall_median_s": statistics.median(walls),
+        "peak_device_bytes_of_median_solve": med_peak,
         "stages_of_median_solve": stages,
+        "event_timed_solve": {"wall_s": event_wall, "parts": parts},
         "profiled_solve": {
             "wall_s": prof_wall,
             "device_kernels": len(kernels),

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from hdsdp_tpu.io.sdpa import BlockEntries, SDPAData
 from hdsdp_tpu.models import synthetic as jsyn
 from hdsdp_tpu.models.problem import SDPProblem as JProblem
 from hdsdp_tpu.ops import chol as jchol
@@ -23,12 +24,52 @@ from hdsdp_tpu_torch.ops import ratio as tratio
 from hdsdp_tpu_torch.ops import schur as tschur
 from hdsdp_tpu_torch.solver import cones as tcones
 
+def _diag_perm_sdpa():
+    """A diag rank-1 problem no generator makes: m = 8 < n = 12, the
+    positions permuted and partly repeated (a non-identity ``dpos``), one
+    constraint dense (full rank), so that the dense x diag cross terms run
+    through the position map too."""
+    n, m = 12, 9
+    rng = np.random.default_rng(8)
+    pos = np.array([3, 7, 3, 0, 11, 5, 7, 2])
+    wts = np.array([1.0, -2.0, 0.5, 1.5, 1.0, 3.0, 1.0, -1.0])
+    il, jl = np.tril_indices(n)
+    G = rng.standard_normal((n, n))
+    C, D = G + G.T, rng.standard_normal((n, n))
+    D = D @ D.T + np.eye(n)
+    data = SDPAData(m=m, block_dims=[n], b=rng.standard_normal(m))
+    data.blocks.append(BlockEntries(
+        dim=n,
+        con=np.concatenate([np.zeros(len(il)), np.arange(1, 9), np.full(len(il), 9)]).astype(np.int32),
+        row=np.concatenate([il, pos, il]).astype(np.int32),
+        col=np.concatenate([jl, pos, jl]).astype(np.int32),
+        val=np.concatenate([C[il, jl], wts, D[il, jl]]),
+    ))
+    data.nnz = len(data.blocks[0].val)
+    return data
+
+
 CASES = {
     # slot-major rank-1 slots + a dense bucket (md = 23) + an LP block
     "random": lambda: jsyn.random_sdpa(m=40, block_dims=[30], n_lp=6, seed=1),
     # the slice's structure at n = 40: one rank-1 all-ones slot per row
     "gpp": lambda: jsyn.gpp_sdpa(n=40, seed=0),
+    # diag bucket, identity map (m = n)
+    "maxcut": lambda: jsyn.maxcut_sdpa(n=40, seed=0),
+    # diag bucket, non-identity map, with a dense constraint
+    "diagperm": _diag_perm_sdpa,
+    # diag bucket + LP cone
+    "qpg": lambda: jsyn.qpg_sdpa(n=30, seed=0),
+    # support bucket (r = 2, c = 2) + the dense identity row
+    "theta": lambda: jsyn.theta_sdpa(n=40, n_edges=120, seed=0),
+    # flat layout, g = 3, up to 4 slots per constraint and block
+    "control": lambda: jsyn.control_sdpa(k=6, n_sys=2, seed=0),
+    # flat layout with a dense bucket spread over three blocks
+    "random3": lambda: jsyn.random_sdpa(m=30, block_dims=[30, 30, 30], seed=2),
 }
+BUCKET = {"random": "slot", "gpp": "slot", "maxcut": "diag", "diagperm": "diag",
+          "qpg": "diag", "theta": "support", "control": "flat", "random3": "flat"}
+HAS_DENSE = {"random", "diagperm", "theta", "random3"}
 
 
 def _rel(t, j):
@@ -41,22 +82,43 @@ def _rel(t, j):
 def case(request):
     prob = JProblem.from_sdpa(CASES[request.param]())
     jc = jcones.ConeSystem(prob)
-    tg, tlp = tcones.groups_from_numpy(jc.groups, jc.lp, "cpu")
+    tg, tlp = tcones.groups_from_numpy(jc.groups, jc.lp, "cpu", m=prob.m)
     rng = np.random.default_rng(11)
-    n = prob.groups[0].dim
-    Q = rng.standard_normal((n, n))
-    U = Q @ Q.T / n + 0.5 * np.eye(n)
+    g, n = prob.groups[0].nblk, prob.groups[0].dim
+    Q = rng.standard_normal((g, n, n))
+    U = Q @ np.swapaxes(Q, 1, 2) / n + 0.5 * np.eye(n)
     S = np.linalg.inv(U)
     s_lp = 0.5 + rng.random(prob.lp.nlp) if prob.lp is not None else None
     return dict(name=request.param, prob=prob, m=prob.m, jc=jc, tg=tg, tlp=tlp,
-                U=U[None], L=np.linalg.cholesky(0.5 * (S + S.T))[None],
+                U=U, L=np.linalg.cholesky(0.5 * (S + np.swapaxes(S, 1, 2))),
                 s_lp=s_lp, y=rng.standard_normal(prob.m))
 
 
 def test_layout(case):
-    assert [tschur.bucket(g) for g in case["tg"]] == ["slot"]
-    md = case["tg"][0].Ad.shape[0]
-    assert (md > 0) == (case["name"] == "random")
+    """Both presolves choose the bucket the case is named for."""
+    name = case["name"]
+    assert len(case["tg"]) == 1
+    tg = case["tg"][0]
+    assert tschur.bucket(tg) == BUCKET[name]
+    assert (tg.Ad.shape[0] > 0) == (name in HAS_DENSE)
+    if BUCKET[name] == "diag":
+        assert (tg.dpos.shape[0] == 0) == (name != "diagperm")  # identity-map marker
+    if name == "random3":
+        assert len(set(tg.didx.tolist())) < tg.didx.shape[0]  # a row dense in two blocks
+    from hdsdp_tpu_torch.models.problem import SDPProblem as TProblem
+    from hdsdp_tpu_torch.models import synthetic as tsyn
+
+    gen = {"qpg": "qpg_sdpa", "maxcut": "maxcut_sdpa", "theta": "theta_sdpa",
+           "control": "control_sdpa"}.get(name)
+    if gen:  # the port's own presolve lands in the same bucket, same arrays
+        kw = {"qpg": dict(n=30), "maxcut": dict(n=40), "theta": dict(n=40, n_edges=120),
+              "control": dict(k=6, n_sys=2)}[name]
+        own = tcones.ConeSystem(TProblem.from_sdpa(getattr(tsyn, gen)(seed=0, **kw)), "cpu").groups[0]
+        for f in tg._fields:
+            a, b = getattr(own, f), getattr(tg, f)
+            assert (a is None) == (b is None), f
+            if a is not None:
+                assert a.shape == b.shape and torch.equal(a, b), f
 
 
 @pytest.mark.parametrize("hp", [False, True])
@@ -194,21 +256,87 @@ def test_ratio_tests(n, mode):
                 jratio.vector_ratio_test(jnp.asarray(s), jnp.asarray(ds))) < 1e-15
 
 
-@pytest.mark.parametrize("family,kw,name", [
-    ("maxcut_sdpa", dict(n=12, seed=0), "diag"),
-    ("theta_sdpa", dict(n=10, n_edges=12, seed=0), "support"),
-    ("control_sdpa", dict(k=3, n_sys=1, seed=0), "flat"),
-])
-def test_unported_buckets_raise(family, kw, name):
-    from hdsdp_tpu_torch.models import synthetic as tsyn
+def test_adaptive_lanczos_never_factors_a_padded_tridiagonal(monkeypatch):
+    """The early-exit Lanczos takes its Ritz pairs from the leading block
+    of T.  It must not hand the eigensolver the JAX package's fixed-shape
+    form (rows not yet built padded with -1e12): cuSOLVER's f32 solver
+    returns wrong top pairs for it, or gives up.  The bound is the JAX
+    package's all the same (to f32 rounding), early exit included."""
+    rng = np.random.default_rng(9)
+    n = 200
+    S = _spd(rng, n)
+    G = rng.standard_normal((1, n, n))
+    dS = (G + np.swapaxes(G, 1, 2)) / np.sqrt(n)
+    L = np.linalg.cholesky(S)
+    real, sizes = torch.linalg.eigh, []
+
+    def watch(A):
+        assert float(A.abs().max()) < 1e6, "a padded tridiagonal reached eigh"
+        sizes.append(A.shape[-1])
+        return real(A)
+
+    monkeypatch.setattr(torch.linalg, "eigh", watch)
+    st, wt = tratio.block_ratio(torch.as_tensor(L), torch.as_tensor(dS), mode="lanczos",
+                                return_warm=True)
+    sj, wj = jratio.block_ratio(jnp.asarray(L), jnp.asarray(dS), mode="lanczos",
+                                return_warm=True)
+    assert sizes and sizes == sorted(sizes) and all(k % 3 == 0 or k == 30 for k in sizes)
+    assert _rel(st, sj) < 1e-5 and _rel(wt, wj) < 1e-4
+
+
+def _own_groups(name, layout):
+    """The port's presolve of a case under a forced layout."""
+    from hdsdp_tpu_torch.io.sdpa import BlockEntries as TBlock, LPEntries as TLP, SDPAData as TData
     from hdsdp_tpu_torch.models.problem import SDPProblem as TProblem
 
-    prob = TProblem.from_sdpa(getattr(tsyn, family)(**kw))
-    cs = tcones.ConeSystem(prob, device="cpu")
-    ga = cs.groups[0]
-    n = prob.groups[0].dim
-    U = torch.eye(n, dtype=torch.float64)[None].expand(ga.C.shape[0], n, n)
-    with pytest.raises(NotImplementedError, match=f"{name} bucket"):
-        tschur.group_schur(ga, U, prob.m)
-    with pytest.raises(NotImplementedError, match=f"{name} bucket"):
-        tschur.group_dual(ga, 1.0, -1.0, torch.zeros(prob.m, dtype=torch.float64), 1.0)
+    d = CASES[name]()
+    t = TData(m=d.m, block_dims=list(d.block_dims), b=np.array(d.b))
+    for blk in d.blocks:
+        t.blocks.append(TBlock(dim=blk.dim, con=blk.con, row=blk.row, col=blk.col, val=blk.val))
+    if d.lp is not None:
+        t.lp = TLP(ncols=d.lp.ncols, con=d.lp.con, var=d.lp.var, val=d.lp.val)
+    t.nnz = d.nnz
+    prob = TProblem.from_sdpa(t)
+    return prob, tcones.ConeSystem(prob, "cpu", layout=layout).groups[0]
+
+
+@pytest.mark.parametrize("name,other", [
+    ("maxcut", "slot"), ("diagperm", "slot"), ("qpg", "slot"), ("theta", "slot"),
+    ("theta", "flat"), ("random", "flat"), ("maxcut", "flat"),
+])
+def test_bucket_matches_other_layout(name, other):
+    """Each specialised bucket against the port's own generic slot-major
+    path, and slot-major against the flat layout, on one problem: M, the
+    RHS rows, the dual assembly, the HSD row and A(X)."""
+    prob, ga = _own_groups(name, "auto")
+    _, gb = _own_groups(name, other)
+    assert tschur.bucket(ga) == BUCKET[name] and tschur.bucket(gb) == other
+    rng = np.random.default_rng(2)
+    n, m = prob.groups[0].dim, prob.m
+    Q = rng.standard_normal((n, n))
+    U = torch.as_tensor(Q @ Q.T + n * np.eye(n))[None]
+    y = torch.as_tensor(rng.standard_normal(m))
+    a = tschur.group_schur(ga, U, m)
+    b = tschur.group_schur(gb, U, m)
+    for f in ("M", "asinv", "trSAS", "trU"):
+        assert _rel(getattr(a, f), getattr(b, f)) < 1e-12, f
+    assert _rel(tschur.group_dual(ga, -1.0, -1.0, y, 2.0),
+                tschur.group_dual(gb, -1.0, -1.0, y, 2.0)) < 1e-12
+    assert _rel(tschur.group_hsd(ga, U, m).asinvcsinv,
+                tschur.group_hsd(gb, U, m).asinvcsinv) < 1e-12
+    assert _rel(tschur.group_atx(ga, U, m), tschur.group_atx(gb, U, m)) < 1e-12
+
+
+def test_table_sum_is_a_segment_sum():
+    rng = np.random.default_rng(0)
+    idx = rng.integers(0, 7, size=50)
+    keep = rng.random(50) < 0.8
+    vals = rng.standard_normal((3, 50))
+    tab = tschur.gather_table(idx, 9, keep)
+    assert tab.shape[0] == 9 and (np.diff(np.where(tab == 50, 10**6, tab), axis=1) >= 0).all()
+    out = tschur._table_sum(torch.as_tensor(vals), torch.as_tensor(tab)).numpy()
+    want = np.zeros((3, 9))
+    for t in np.nonzero(keep)[0]:
+        want[:, idx[t]] += vals[:, t]
+    np.testing.assert_allclose(out, want, rtol=1e-14, atol=1e-14)
+    assert tschur.gather_table(np.zeros(0, np.int64), 4).shape == (4, 1)

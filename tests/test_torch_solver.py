@@ -1,5 +1,6 @@
 """The port's host-loop solver end to end against the JAX package's
-(fused=False), its CLI, its device policy and what it does not port."""
+(fused=False) on every synthetic family, its CLI, its device policy and
+what it does not port."""
 
 import json
 import os
@@ -162,20 +163,120 @@ def test_cuda_device_without_card_raises():
         TSolver(prob, device="cuda")
 
 
-@pytest.mark.parametrize("family,kw,what", [
-    ("maxcut_sdpa", dict(n=10, seed=0), "diag bucket"),
-    ("theta_sdpa", dict(n=10, n_edges=12, seed=0), "support bucket"),
-])
-def test_unported_bucket_raises(family, kw, what):
-    prob = TProblem.from_sdpa(getattr(tsyn, family)(**kw))
-    with pytest.raises(NotImplementedError, match=what):
-        TSolver(prob, device="cpu", verbose=False).optimize()
+FAMILIES = {
+    # name: (generator, kwargs, overrides, bucket, PSDP ends the solve)
+    "maxcut": ("maxcut_sdpa", dict(n=40, seed=0), {}, "diag", False),
+    "torus": ("torus_sdpa", dict(side=3, seed=0), {}, "diag", False),
+    "qpg": ("qpg_sdpa", dict(n=30, seed=0), {}, "diag", False),
+    # one cone with n < m/3: phase B hands over to PSDP, which converges
+    "theta": ("theta_sdpa", dict(n=30, n_edges=250, seed=0), {}, "support", True),
+    "control": ("control_sdpa", dict(k=6, n_sys=2, seed=0), {}, "flat", False),
+    # every Schur solve through AdaptiveCG
+    "maxcut_cg": ("maxcut_sdpa", dict(n=40, seed=0), dict(kkt_solver="cg"), "diag", False),
+    "theta_cg": ("theta_sdpa", dict(n=30, n_edges=250, seed=0), dict(kkt_solver="cg"),
+                 "support", True),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(FAMILIES))
+def family_runs(request):
+    gen, kw, over, bucket, psdp = FAMILIES[request.param]
+    js = JSolver(JProblem.from_sdpa(getattr(jsyn, gen)(**kw)), verbose=False, fused=False,
+                 **over)
+    rj = js.optimize()
+    ts = TSolver(TProblem.from_sdpa(getattr(tsyn, gen)(**kw)), device="cpu", verbose=False,
+                 **over)
+    rt = ts.optimize()
+    return dict(name=request.param, js=js, rj=rj, ts=ts, rt=rt, bucket=bucket, psdp=psdp,
+                cg="kkt_solver" in over)
+
+
+def test_family_matches_jax(family_runs):
+    rj, rt = family_runs["rj"], family_runs["rt"]
+    assert rt.status == rj.status == "PRIMAL_DUAL_OPTIMAL"
+    assert abs(rt.n_iters - rj.n_iters) <= 1
+    assert rt.d_obj == pytest.approx(rj.d_obj, rel=1e-7)
+    assert rt.p_obj == pytest.approx(rj.p_obj, rel=1e-7)
+    assert np.max(np.abs(rt.dimacs)) < 1e-6
+    np.testing.assert_allclose(rt.y, rj.y, rtol=1e-5, atol=1e-6 * np.abs(rj.y).max())
+
+
+def test_family_runs_its_bucket_and_solver(family_runs):
+    from hdsdp_tpu_torch.ops.schur import bucket
+
+    ts, js, rt, rj = (family_runs[k] for k in ("ts", "js", "rt", "rj"))
+    assert [bucket(g) for g in ts.ipm.cones.groups] == [family_runs["bucket"]]
+    for k in ("n_factor", "n_solve", "n_kkt"):
+        assert abs(rt.stats[k] - rj.stats[k]) <= 3, k
+    assert ("cg_n_factor" in rt.stats) == family_runs["cg"]
+    if family_runs["cg"]:
+        # the policy's evidence survives release_solve_buffers, the object not
+        assert ts.ipm._cg is None and rt.stats["cg_summary"]["refine"]["n"] > 0
+        assert abs(rt.stats["cg_n_factor"] - rj.stats["cg_n_factor"]) <= 2
+        assert abs(rt.stats["cg_n_solve"] - rj.stats["cg_n_solve"]) <= 6
+        assert 0 < rt.stats["cg_n_factor"] < rt.stats["cg_n_solve"]
+
+
+def test_family_primal(family_runs):
+    """get_primal of both packages: the refined X where PSDP ended the
+    solve, else the maker's recovery."""
+    ts, js = family_runs["ts"], family_runs["js"]
+    assert (ts.ipm.psdp is not None) == (js.ipm.psdp is not None) == family_runs["psdp"]
+    assert ts.params.psdp == (1 if family_runs["psdp"] else 0)
+    if family_runs["psdp"]:
+        assert ts.ipm.psdp.converged and family_runs["rt"].stats["psdp_runs"] == 1
+        assert ts.ipm.psdp.n_iter == family_runs["rt"].stats["psdp_iters"] >= 10
+    Xt, xt = ts.get_primal()
+    Xj, xj = js.get_primal()
+    assert (xt is None) == (xj is None)
+    for a, b in zip(Xt, Xj):
+        a, b = a + a.T, np.asarray(b) + np.asarray(b).T
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * np.abs(b).max())
+
+
+def test_two_solves_repeat_bit_for_bit():
+    """Every reduction over duplicate indices has a fixed order, so one
+    process solves one instance twice with identical bits (support bucket
+    + PSDP + AdaptiveCG here; the card is held to the same by its smoke
+    run)."""
+    prob = TProblem.from_sdpa(tsyn.theta_sdpa(n=30, n_edges=250, seed=0))
+    a = TSolver(prob, device="cpu", verbose=False, kkt_solver="cg").optimize()
+    b = TSolver(prob, device="cpu", verbose=False, kkt_solver="cg").optimize()
+    assert a.d_obj == b.d_obj and a.p_obj == b.p_obj and a.n_iters == b.n_iters
+    np.testing.assert_array_equal(a.y, b.y)
+
+
+def test_psdp_failure_switches_it_off_and_the_dual_method_finishes():
+    """random_sdpa(m=30, [8], seed=4): the refiner fails in both packages
+    (see test_torch_psdp), phase B goes on without it and ends optimal."""
+    kw = dict(m=30, block_dims=[8], seed=4)
+    js = JSolver(JProblem.from_sdpa(jsyn.random_sdpa(**kw)), verbose=False, fused=False)
+    rj = js.optimize()
+    ts = TSolver(TProblem.from_sdpa(tsyn.random_sdpa(**kw)), device="cpu", verbose=False)
+    rt = ts.optimize()
+    assert ts.ipm.psdp is None and js.ipm.psdp is None
+    assert rt.stats["psdp_runs"] == 1 and rt.stats["psdp_iters"] > 0
+    assert rt.status == rj.status == "PRIMAL_DUAL_OPTIMAL"
+    assert rt.d_obj == pytest.approx(rj.d_obj, rel=1e-7)
+    assert np.max(np.abs(rt.dimacs)) < 1e-6
+
+
+def test_cone_system_layout_argument():
+    from hdsdp_tpu_torch.ops.schur import bucket
+    from hdsdp_tpu_torch.solver.cones import ConeSystem
+
+    prob = TProblem.from_sdpa(tsyn.maxcut_sdpa(n=10, seed=0))
+    assert [bucket(ConeSystem(prob, "cpu", layout=k).groups[0])
+            for k in ("auto", "slot", "flat")] == ["diag", "slot", "flat"]
+    cs = ConeSystem(prob, "cpu")
+    assert (cs.group_dims, cs.group_nblk, cs.n_cones) == ([10], [1], 1)
+    with pytest.raises(ValueError, match="layout"):
+        ConeSystem(prob, "cpu", layout="packed")
 
 
 @pytest.mark.parametrize("override,what", [
     (dict(fused="phase"), "fused"),
     (dict(fused=True), "fused"),
-    (dict(kkt_solver="cg"), "AdaptiveCG"),
     (dict(kkt_mode="free"), "operator mode"),
     (dict(kkt_fp="dd"), "ddchol"),
 ])
