@@ -32,6 +32,19 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              and hold each to its status, its DIMACS errors and the JAX
              package's objective; two of them (maxG51, theta6) are solved
              twice and must repeat bit for bit.  One JSON line per solve.
+  6. operator  solve theta-m25001 (theta_sdpa(n=700, n_edges=25000, seed=0),
+             m = 25,001, nothing cut) through solve_sdpa_file with default
+             parameters, which engage the matrix-free Schur operator by
+             themselves, and hold it: optimal, no dense M in the dual solve,
+             CG steps and f32 preconditioner builds counted, PSDP matrix-free,
+             DIMACS max within its bound, no launch of K1/K1s, the objective
+             of the JAX package's CPU run; then the same instance with
+             kkt_mode="dense" (a 5 GB M, AdaptiveCG, PSDP's row-chunked
+             build) as a second reference; then maxG51 (the diag bucket's shortcut) and
+             random-m1000 (the generic slot-major bucket with a dense bucket)
+             under kkt_mode="free" against the objectives of their dense
+             solves; then time the two ways of applying the f32
+             preconditioner at m = 25,001.  One JSON line per solve.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}.
@@ -73,6 +86,19 @@ FAMILY_REFS = {
 FAMILY_CG = ("theta6", "maxG55")  # m >= kkt_cg_threshold: AdaptiveCG must engage
 FAMILY_PSDP = ("theta6",)  # one cone, n < m / 3: the refiner must run
 FAMILY_TWICE = ("maxG51", "theta6")  # solved twice: the trajectory must repeat
+
+# theta-m25001 in operator mode.  DIMACS max is held to 1e-4: PSDP at
+# n = 700 contracts the gap by at most 1 - 1/sqrt(700) an iteration, cannot
+# converge within its 100 iterations and leaves through its flatten exit at
+# a relative gap (DIMACS error 5) of order 1e-5.  The reference is the JAX
+# package's host loop on the CPU for the same generator call
+# (tests/jax_reference.py theta-m25001: operator mode there too, 99
+# iterations), held to 1e-6 relative.  The older record of the JAX package
+# for this call (a TPU run that left PSDP at a relative gap of 6.3e-05,
+# benchmarks/logs/opfree_25k_r5.log) is printed beside it, not held.
+OPERATOR_DIMACS_BOUND = 1e-4
+OPERATOR_JAX_REF = (99, -99.52193140329659)
+OPERATOR_JAX_RECORD_D_OBJ = -99.52377458005179
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
 PEAK_BYTES_S = 3.35e12    # HBM3
@@ -447,7 +473,8 @@ def _kernel_phase(hpmm, hpmm_cases, dev):
 
 def _family_phase(torch, solve_sdpa_file, instances, hpmm):
     """The five SDPLIB-size instances beyond gpp500 through the default
-    path; raises unless each meets its holds."""
+    path; raises unless each meets its holds.  Returns their objectives."""
+    d_objs = {}
     for name, (ref_iters, ref_d_obj) in FAMILY_REFS.items():
         runs = []
         with tempfile.TemporaryDirectory() as tmp:
@@ -495,6 +522,141 @@ def _family_phase(torch, solve_sdpa_file, instances, hpmm):
                   f"iterations {a.n_iters} / {b.n_iters}, y bit-equal: {same}", flush=True)
             if not same:
                 raise AssertionError(f"{name}: two solves in one process differ")
+        d_objs[name] = runs[0].d_obj
+    return d_objs
+
+
+def _operator_phase(torch, solve_sdpa_file, instances, hpmm, dense_d_obj, tmp):
+    """Operator mode at m = 25,001 through the default path, its dense
+    reference, and two more instances forced matrix-free; ``dense_d_obj``
+    holds the objectives of the dense solves of the earlier phases, ``tmp``
+    is a directory for the instances' files.  Raises unless every hold is
+    met."""
+    from hdsdp_tpu_torch.solver.algo import DualIPM
+
+    written = {}  # name -> (path, the instance's overrides)
+    builds = []  # (kkt_free, M is None) after every KKT build of the dual solve
+    plain_build = DualIPM.build_kkt
+
+    def spying_build(self, kind):
+        out = plain_build(self, kind)
+        builds.append((self.kkt_free, out.M is None))
+        return out
+
+    def solve(name, **over):
+        if name not in written:  # each instance's file is written once
+            path = os.path.join(tmp, name + ".dat-s")
+            written[name] = (path, instances.write_instance(name, path))
+        path, overrides = written[name]
+        overrides = dict(overrides, **over)
+        del builds[:]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k0, s0 = hpmm.KERNEL_LAUNCHES, hpmm.SLICE_LAUNCHES
+        DualIPM.build_kkt = spying_build
+        t0 = time.perf_counter()
+        try:
+            r = solve_sdpa_file(path, device="cuda", verbose=False, **overrides)
+        finally:
+            DualIPM.build_kkt = plain_build
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = r.stats
+        line = {
+            "operator_phase": name, "overrides": overrides, "m": int(r.y.shape[0]),
+            "status": r.status, "iterations": r.n_iters, "d_obj": r.d_obj, "p_obj": r.p_obj,
+            "dimacs_max": float(abs(r.dimacs).max()), "wall_s": wall,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "kkt_builds": len(builds),
+            "kkt_builds_matrix_free": sum(free and no_m for free, no_m in builds),
+            "n_solve": st["n_solve"], "opcg_iters": st.get("opcg_iters", 0),
+            "op_pc_builds": st.get("op_pc_builds", 0),
+            "op_escalations": st.get("op_escalations", 0),
+            "cg_n_factor": st.get("cg_n_factor"), "psdp_runs": st.get("psdp_runs", 0),
+            "psdp_iters": st.get("psdp_iters", 0), "psdp_op_runs": st.get("psdp_op_runs", 0),
+            "hpmm_pairs_launches": hpmm.KERNEL_LAUNCHES - k0,
+            "hpmm_slice_launches": hpmm.SLICE_LAUNCHES - s0, "device": r.device,
+        }
+        print(json.dumps(line), flush=True)
+        return r, line
+
+    def matrix_free(line):
+        return (line["kkt_builds"] > 0 and line["kkt_builds_matrix_free"] == line["kkt_builds"]
+                and line["opcg_iters"] > 0)
+
+    # -- m = 25,001 with default parameters: kkt_mode="auto" engages it ----
+    name = "theta-m25001"
+    r, line = solve(name)
+    checks = {
+        "status": r.status == "PRIMAL_DUAL_OPTIMAL",
+        "matrix_free": matrix_free(line),  # kkt_free and no dense M at every KKT build
+        "op_pc_builds": line["op_pc_builds"] >= 1,
+        "op_escalations": line["op_escalations"] == 0,  # tier 3 would allocate the 5 GB M
+        "psdp_matrix_free": line["psdp_op_runs"] == line["psdp_runs"],
+        "dimacs": line["dimacs_max"] <= OPERATOR_DIMACS_BOUND,
+        "d_obj": abs(r.d_obj - OPERATOR_JAX_REF[1]) <= 1e-6 * abs(OPERATOR_JAX_REF[1]),
+        "own_kernels": line["hpmm_pairs_launches"] == 0 and line["hpmm_slice_launches"] == 0,
+        "device": r.device.startswith("cuda"),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"{name} in operator mode: checks failed: {checks}")
+    # a second reference: the port's dense path on the same file (a 5.0 GB
+    # f64 M, AdaptiveCG, PSDP's row-chunked dense build).  Both runs leave
+    # PSDP through its flatten exit, after different numbers of iterations,
+    # at relative gaps of about 1e-5, and each late iteration moves d_obj by
+    # about 1e-6 relative: the two objectives are held to 1e-5.
+    rd, dline = solve(name, kkt_mode="dense")
+    rel = abs(r.d_obj - rd.d_obj) / abs(rd.d_obj)
+    print(f"[operator] {name}: d_obj {r.d_obj!r}, relative to the JAX package's CPU run "
+          f"({OPERATOR_JAX_REF[1]!r}, {OPERATOR_JAX_REF[0]} iterations) "
+          f"{abs(r.d_obj - OPERATOR_JAX_REF[1]) / abs(OPERATOR_JAX_REF[1]):.3e}, to the port's "
+          f"dense path ({rd.d_obj!r}) {rel:.3e}; iterations {r.n_iters} / {rd.n_iters} dense; "
+          f"DIMACS max {line['dimacs_max']:.3e} / {dline['dimacs_max']:.3e}; the JAX package's "
+          f"older TPU record for this generator call: {OPERATOR_JAX_RECORD_D_OBJ!r}", flush=True)
+    if not (rd.status == "PRIMAL_DUAL_OPTIMAL" and dline["kkt_builds_matrix_free"] == 0
+            and dline["opcg_iters"] == 0 and rel <= 1e-5):
+        raise AssertionError(f"{name}: operator mode against the dense path: {line} / {dline}")
+
+    # -- the diag shortcut and the generic slot-major row build, forced ----
+    # (the generic bucket on random-m1000, whose dense solve comes first:
+    # CG cannot carry gpp500, see utils/instances.py)
+    rd, _ = solve("random-m1000")
+    dense_d_obj = dict(dense_d_obj, **{"random-m1000": rd.d_obj})
+    for name in ("maxG51", "random-m1000"):
+        r, line = solve(name, kkt_mode="free")
+        rel = abs(r.d_obj - dense_d_obj[name]) / abs(dense_d_obj[name])
+        print(f"[operator] {name} kkt_mode=free: d_obj {r.d_obj!r} against its dense solve "
+              f"{dense_d_obj[name]!r}, relative difference {rel:.3e}", flush=True)
+        if not (r.status == "PRIMAL_DUAL_OPTIMAL" and matrix_free(line) and rel <= 1e-6
+                and line["dimacs_max"] <= 1e-6):
+            raise AssertionError(f"{name} under kkt_mode=free: {line}")
+
+    # -- applying the preconditioner at m = 25,001: the explicit inverse
+    # (two f32 products with Linv, what the solver does) against two
+    # triangular solves with L, on 3 right-hand sides ------------------------
+    m, k = 25001, 3
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    Ms = torch.randn((m, 64), generator=gen, device="cuda", dtype=torch.float32)
+    Ms = Ms @ Ms.T / 64.0
+    Ms.diagonal().add_(1.0)  # SPD, well conditioned
+    L = torch.linalg.cholesky(Ms)
+    del Ms
+    Linv = torch.linalg.solve_triangular(
+        L, torch.eye(m, device="cuda", dtype=torch.float32), upper=False)
+    R = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.float32)
+    via_inv = Linv.T @ (Linv @ R)
+    via_solve = torch.linalg.solve_triangular(
+        L.T, torch.linalg.solve_triangular(L, R, upper=False), upper=True)
+    diff = float((via_inv - via_solve).abs().max() / via_solve.abs().max())
+    t_inv = _time_ms(lambda: Linv.T @ (Linv @ R), reps=10)
+    t_solve = _time_ms(lambda: torch.linalg.solve_triangular(
+        L.T, torch.linalg.solve_triangular(L, R, upper=False), upper=True), reps=10)
+    print(f"[operator] applying the f32 preconditioner at m = {m}, {k} right-hand sides: "
+          f"two products with Linv {t_inv:.3f} ms, two triangular solves with L "
+          f"{t_solve:.3f} ms (relative difference of the results {diff:.2e}); the bytes of "
+          f"L or Linv read twice at {PEAK_BYTES_S / 1e12} TB/s: "
+          f"{1e3 * 2 * 4 * m * m / PEAK_BYTES_S:.3f} ms", flush=True)
+    _require(diff < 1e-3, "the two preconditioner applications disagree")
 
 
 def main() -> int:
@@ -575,7 +737,11 @@ def main() -> int:
         raise AssertionError("small solve on the card disagrees with the host")
 
     # -- the other families at SDPLIB size, default parameters -------------
-    _family_phase(torch, solve_sdpa_file, instances, hpmm)
+    dense_d_obj = _family_phase(torch, solve_sdpa_file, instances, hpmm)
+
+    # -- operator mode: m = 25,001 by default, two instances forced --------
+    with tempfile.TemporaryDirectory() as tmp:
+        _operator_phase(torch, solve_sdpa_file, instances, hpmm, dense_d_obj, tmp)
 
     # K1 at the pair shape; K1s as the mean of the four operand launches of
     # the main path's two products (FU: A and a row-major B; pair: A and B

@@ -11,9 +11,11 @@ several consecutive KKT systems and is refreshed only when the sweep
 count degrades.
 
 The loops run on the host and read one scalar per step (the JAX package
-runs them as one ``lax.while_loop``).  Not ported, because their gates are
-false off a TPU in the JAX package: the pre-inverted factor, the
-double-single full-precision tier and the Ozaki residual product.
+runs them as one ``lax.while_loop``).  ``factor_scaled_f32`` is the
+inverted f32 factor behind the preconditioner of the matrix-free operator
+(solver.algo).  Not ported, because their gates are false off a TPU in the
+JAX package: AdaptiveCG's pre-inverted factor, its double-single
+full-precision tier and the Ozaki residual product.
 """
 
 from __future__ import annotations
@@ -106,6 +108,33 @@ def _equilibrated_factor(M: torch.Tensor, f32: bool = True):
         Ms = Ms.to(torch.float32)
     ok, L = chol_ops.psd_check(Ms)
     return L, s, ok
+
+
+def factor_scaled_f32(Ms: torch.Tensor):
+    """Inverted Cholesky factor of an ALREADY-equilibrated f32 SPD matrix
+    (unit diagonal): (Linv, ok), with Linv None when the factorization
+    fails.  The operator-mode preconditioner path materializes M directly
+    in equilibrated f32 row chunks (no f64 m x m ever exists), so this is
+    ``_equilibrated_factor`` minus the scaling, plus the explicit inverse:
+    the preconditioner is then applied as two matrix products.
+
+    The factor reads the LOWER triangle of Ms.  A matrix assembled row by
+    row is symmetric only to rounding (an f32 unit in the last place),
+    which moves the preconditioner by no more than the f32 factorization
+    itself does; Linv^T Linv is symmetric whatever was read, and CG on
+    the f64 operator removes the rest.  Failure is the factorization's
+    own report (``info``) or a non-finite inverse (a near-zero pivot
+    overflows the explicit inverse where a triangular solve would have
+    limped through)."""
+    L, info = torch.linalg.cholesky_ex(Ms)
+    if int(info) != 0:
+        return None, False
+    eye = torch.eye(Ms.shape[0], dtype=L.dtype, device=L.device)
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    del L, eye
+    if not bool(torch.isfinite(Linv).all()):
+        return None, False
+    return Linv, True
 
 
 def chol_apply(L: torch.Tensor, U: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,11 @@ by a gather and a reduction along the table's width (``_table_sum``), or
 the sum is a matrix product with a constant 0/1 operator (``dsel``).
 ``index_add`` is used only where the indices are unique (the dense bucket
 of a single-block group: one coefficient per constraint).
+
+The same buckets also serve the matrix-free Schur operator of large m
+(``group_schur_matvec``, ``group_schur_diag``, ``group_schur_rows`` and
+their LP counterparts): M applied to a vector, its exact diagonal, and its
+rows in chunks, without ever storing M.
 """
 
 from __future__ import annotations
@@ -494,6 +499,161 @@ def group_atx(ga: GroupArrays, X: torch.Tensor, m: int) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------
+# Matrix-free Schur operator (the analogue of the reference's sparse
+# m x m Schur storage, ref interface/hdsdp_schur.c:46-139 and the
+# dense-vs-sparse decision at hdsdp_schur.c:60,227).
+#
+# Above the size where a dense M fits comfortably, M is never stored: CG
+# solves use
+#
+#     M v = A( S^-1 (sum_j v_j A_j) S^-1 )
+#
+# applied per bucket, O(m + n^2) memory instead of O(m^2), with the exact
+# diagonal of M as the Jacobi preconditioner and row chunks of M as the
+# source of an f32 Cholesky preconditioner.  The diagonal rank-1 bucket
+# collapses the matvec further to O(m n) gathers (no n^3 congruence).
+# ----------------------------------------------------------------------
+
+
+def group_schur_matvec(ga: GroupArrays, U: torch.Tensor, v: torch.Tensor,
+                       m: int) -> torch.Tensor:
+    """(M_group @ v) for one vector v [m] without M_group.
+
+    (M v)_i = tr(A_i S^-1 W S^-1) with W = sum_j v_j A_j: one weighted-sum
+    assembly (group_dual with dC = dEye = 0), one congruence and one A(X)
+    per matvec."""
+    if ga.dpos is not None and ga.Ad.shape[0] == 0:
+        # diagonal rank-1 bucket: M_ij = w_i w_j (U_{p_i p_j})^2, so
+        # M v = w * (Usq[p] @ segsum(w v)): O(m n), no congruence
+        U0 = U[0]
+        wv = ga.dw * v
+        Usq = U0 * U0
+        if ga.dpos.shape[0] == 0:  # identity map
+            return ga.dw * (Usq @ wv)
+        return ga.dw * (Usq[ga.dpos] @ _table_sum(wv, ga.dtab))
+    W = group_dual(ga, 0.0, 1.0, v, 0.0)
+    return group_atx(ga, U @ W @ U, m)
+
+
+def _flat_diag(ga: GroupArrays, Q: torch.Tensor) -> torch.Tensor:
+    """d[i] = sum over blocks b and slots r, s of constraint i in b of
+    Q[b, r, s] (the diagonal of ``accumulate_m``), in the order of the
+    slot table."""
+    g = Q.shape[0]
+    Qp = torch.nn.functional.pad(Q, (0, 1, 0, 1))
+    b = torch.arange(g, device=Q.device)[:, None, None, None]
+    sub = Qp[b, ga.ftab[:, :, :, None], ga.ftab[:, :, None, :]]  # [g, m, k, k]
+    return sub.sum(dim=(-1, -2)).sum(0)
+
+
+def group_schur_diag(ga: GroupArrays, U: torch.Tensor, m: int) -> torch.Tensor:
+    """diag(M_group) exactly, without M: the Jacobi preconditioner of the
+    matrix-free path.  Buckets are exclusive per (constraint, block)
+    (models/problem.py packs each coefficient as low-rank OR dense), so
+    there are no low-rank x dense diagonal cross terms."""
+    kind = bucket(ga)
+    if kind == "diag":
+        dU = _diag_take(ga, torch.diagonal(U[0]))
+        d = ga.dw * ga.dw * (dU * dU)
+    elif kind == "support":
+        P, V = ga.spos, ga.sval
+        # G[j, k, i] = v_{j,i}' U v_{k,i} over each slot pair's support
+        Ucr = U[0][P[:, None, :, :, None], P[None, :, :, None, :]]  # [r, r, m, c, c]
+        G = torch.einsum("jkiab,jia,kib->jki", Ucr, V, V)
+        d = torch.einsum("ji,ki,jki->i", ga.lams, ga.lams, G * G)
+    elif kind == "slot":
+        FU = ga.Fs @ U[0]  # [r, m, n]
+        G = torch.einsum("jin,kin->jki", FU, ga.Fs)
+        d = torch.einsum("ji,ki,jki->i", ga.lams, ga.lams, G * G)
+    else:
+        W = (ga.F @ U) @ ga.F.mT  # F U F^T, [g, R, R]
+        d = _flat_diag(ga, (ga.lam[:, :, None] * ga.lam[:, None, :]) * (W * W))
+    if ga.Ad.shape[0]:
+        B, _ = _dense_congruence(ga, U)
+        d = _add_dense(ga, d, torch.sum(B * ga.Ad, dim=(-1, -2)))
+    return d
+
+
+def group_schur_rows(ga: GroupArrays, U: torch.Tensor, i0: int, chunk: int,
+                     m: int) -> Optional[torch.Tensor]:
+    """Rows [i0, i0+chunk) of this group's Schur contribution, [chunk, m].
+
+    The row-chunked build behind the operator-mode Cholesky
+    preconditioner: the full M exists only as an f32 copy assembled chunk
+    by chunk, and no f64 temporary is larger than a few [chunk, m] blocks.
+    The caller keeps i0 + chunk <= m (its last chunk overlaps the one
+    before instead of running short).
+
+    Supported: the three slot-major buckets (diag / bounded-support /
+    generic slot) with their dense slots, the shapes that reach operator
+    scale (the theta family's identity row is a dense slot).  Returns
+    None for the flat multi-block layout; the caller falls back to
+    Jacobi."""
+    if ga.Fs is None:
+        return None
+    U0 = U[0]
+    md = ga.Ad.shape[0]
+    sl = slice(i0, i0 + chunk)
+    kind = bucket(ga)
+
+    if kind == "diag":
+        w = ga.dw
+        if ga.dpos.shape[0] == 0:
+            Usub = U0[sl]
+        else:
+            Usub = U0[ga.dpos[sl]][:, ga.dpos]
+        M = (w[sl, None] * w[None, :]) * (Usub * Usub)
+    elif kind == "support":
+        P, V, w = ga.spos, ga.sval, ga.lams  # [r, m, c], [r, m]
+        r, _, c = P.shape
+        M = torch.zeros((chunk, m), dtype=U.dtype, device=U.device)
+        for j in range(r):
+            Pr, Vr, wr = P[j, sl], V[j, sl], w[j, sl]
+            for k in range(r):
+                T = torch.zeros((chunk, m), dtype=U.dtype, device=U.device)
+                for a in range(c):
+                    G = U0[Pr[:, a]]  # [chunk, n]
+                    for b in range(c):
+                        T = T + (Vr[:, a, None] * V[k][None, :, b]) * G[:, P[k][:, b]]
+                M = M + (wr[:, None] * w[k][None, :]) * (T * T)
+    else:
+        # generic slot-major: r^2 [chunk, n] x [n, m] products
+        r = ga.Fs.shape[0]
+        M = torch.zeros((chunk, m), dtype=U.dtype, device=U.device)
+        for j in range(r):
+            FUr = ga.Fs[j, sl] @ U0  # [chunk, n]
+            wr = ga.lams[j, sl]
+            for k in range(r):
+                T = FUr @ ga.Fs[k].T  # [chunk, m]
+                M = M + (wr[:, None] * ga.lams[k][None, :]) * (T * T)
+
+    if md:
+        # dense slots (md is small, e.g. the theta identity row).
+        # cross[d, i] = dense slot d against constraint i's low-rank
+        # part; dense constraints hold no low-rank slot, so no entry is
+        # counted twice.
+        B, _ = _dense_congruence(ga, U)  # [md, n, n]
+        if kind == "diag":
+            cross = ga.dw[None, :] * _diag_take(ga, torch.diagonal(B, dim1=-2, dim2=-1))
+        elif kind == "support":
+            cross = torch.stack([_support_quad(ga, Bi) for Bi in B])
+        else:
+            cross = torch.stack([_slot_quad(ga, ga.Fs @ Bi) for Bi in B])  # [md, m]
+        Mdd = B.reshape(md, -1) @ ga.Ad.reshape(md, -1).T  # [md, md]
+        # 0/1 selectors by comparison (didx is unique in a single-block
+        # group, so every product below has one term per entry)
+        cols = torch.arange(m, device=U.device)
+        Ed = (ga.didx[:, None] == cols[None, :]).to(U.dtype)  # [md, m]
+        # low-rank rows of the chunk x dense columns
+        M = M + cross[:, sl].T @ Ed
+        # dense rows that fall inside the chunk (the full row, dense x
+        # dense block included); slots outside the chunk select no row
+        Erel = (ga.didx[:, None] - i0 == cols[None, :chunk]).to(U.dtype)  # [md, chunk]
+        M = M + Erel.T @ (cross + Mdd @ Ed)
+    return M
+
+
+# ----------------------------------------------------------------------
 # LP cone contributions (ref interface/hdsdp_conic_lp.c:254-330)
 # ----------------------------------------------------------------------
 
@@ -527,3 +687,20 @@ def lp_hsd(lp: LPArrays, s: torch.Tensor, m: int) -> HSDOut:
         csinvcsinv=torch.sum(csi * csi),
         trUCU=torch.zeros((), dtype=s.dtype, device=s.device),
     )
+
+
+def lp_schur_rows(lp: LPArrays, s: torch.Tensor, i0: int, chunk: int) -> torch.Tensor:
+    """Rows [i0, i0+chunk) of the LP cone's A diag(s^-2) A^T."""
+    si2 = 1.0 / (s * s)
+    return (lp.A[i0:i0 + chunk] * si2[None, :]) @ lp.A.T
+
+
+def lp_schur_matvec(lp: LPArrays, s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(A diag(s^-2) A') v for the LP cone (ref hdsdp_conic_lp.c:294-313)."""
+    si2 = 1.0 / (s * s)
+    return lp.A @ (si2 * (v @ lp.A))
+
+
+def lp_schur_diag(lp: LPArrays, s: torch.Tensor) -> torch.Tensor:
+    si2 = 1.0 / (s * s)
+    return (lp.A * lp.A) @ si2

@@ -16,16 +16,19 @@ is implicit and takes part in Phase A / B but not in the HSD method.
 
 Control flow runs on the host; every ``bool(...)``/``float(...)`` of a
 device tensor below is a sync point, exactly where the JAX host loop reads
-a device value back.  The Schur system is dense (m x m): factored by
-Cholesky with a regularization ladder and an LU fallback, or, from
-``kkt_cg_threshold`` rows on, solved by AdaptiveCG (ops.cg: refinement
-against a stale mixed-precision factor) with that ladder as its
-escalation.  Near convergence phase B hands one-cone problems with
-n < m/3 to the PSDP primal refinement (solver.psdp).
+a device value back.  Below ``kkt_free_threshold`` rows the Schur system
+is dense (m x m): factored by Cholesky with a regularization ladder and an
+LU fallback, or, from ``kkt_cg_threshold`` rows on, solved by AdaptiveCG
+(ops.cg: refinement against a stale mixed-precision factor) with that
+ladder as its escalation.  From ``kkt_free_threshold`` rows on (or with
+``kkt_mode="free"``) M is never stored: the system is an operator
+(``_build_kkt_operator``) solved by the CG ladder of ``_op_solve``, whose
+preconditioner is an f32 Cholesky factor of M assembled in row chunks.
+Near convergence phase B hands one-cone problems with n < m/3 to the PSDP
+primal refinement (solver.psdp).
 
 Not ported (raise NotImplementedError): the fused whole-phase programs,
-the matrix-free operator mode, the double-single factors and the
-multi-device mesh.
+the double-single factors and the multi-device mesh.
 """
 
 from __future__ import annotations
@@ -39,9 +42,9 @@ import torch
 
 from hdsdp_tpu_torch.models.problem import SDPProblem
 from hdsdp_tpu_torch.ops import chol as chol_ops
-from hdsdp_tpu_torch.ops.cg import AdaptiveCG
+from hdsdp_tpu_torch.ops.cg import AdaptiveCG, factor_scaled_f32
 from hdsdp_tpu_torch.ops.ratio import vector_ratio_test
-from hdsdp_tpu_torch.solver.cones import ConeSystem
+from hdsdp_tpu_torch.solver.cones import ConeSystem, chunk_starts
 from hdsdp_tpu_torch.solver.params import Params, adjust_params
 from hdsdp_tpu_torch.utils.device import DTYPE
 from hdsdp_tpu_torch.utils.log import Logger
@@ -74,8 +77,6 @@ def _check_supported(params: Params, m: int) -> None:
     p = params
     if p.fused not in ("auto", False):
         raise NotImplementedError(f"fused={p.fused!r}: the fused programs")
-    if p.kkt_mode == "free" or (p.kkt_mode == "auto" and m >= p.kkt_free_threshold):
-        raise NotImplementedError("operator mode (matrix-free Schur)")
     if p.kkt_fp == "dd" or p.cone_fp == "dd":
         raise NotImplementedError("ddchol")
     if p.dtype != "float64":
@@ -104,6 +105,20 @@ class DualIPM:
         self.cones.lanczos_dim = params.lanczos_dim
         self.cones.kkt_hp = params.kkt_hp == "on"
         self.cones.dual_hp = self._use_dual_hp()
+        # matrix-free Schur operator (sparse-Schur analogue, ref
+        # hdsdp_schur.c:60,227): M never materializes; solves are CG on
+        # M v = A(S^-1 (sum_j v_j A_j) S^-1)
+        self.kkt_free = self._use_kkt_free()
+        self._op_Us = None  # frozen S^-1 per group (the solve operator)
+        self._op_slp = None  # frozen LP slack at the full build
+        self._op_bound = None  # bound-cone diagonal [m]
+        self._op_diag = None  # exact diag(M) incl. bound
+        self._op_reg = 0.0
+        self._op_pc = None  # (Linv f32, s): stale Cholesky preconditioner
+        self._op_pc_refresh = False  # rebuild it before the next system
+        self._op_pc_unavailable = False  # its factor failed at every boost
+        self._op_escalated = None  # direct factor from a CG stall
+        self._op_mat_unavailable = False  # the dense M did not fit
         self.b = self._vec(prob.b * self.rhs_scal)
 
         # bound cone box (ref hdsdp.c:675-690)
@@ -146,7 +161,7 @@ class DualIPM:
 
         # KKT exports (device)
         self.kkt = None
-        self.Mfac = None  # ("chol", L), ("lu", (LU, pivots)) or ("cg", M)
+        self.Mfac = None  # ("chol", L), ("lu", (LU, pivots)), ("cg", M) or ("opcg", None)
         self._cg: Optional[AdaptiveCG] = None  # made at the first CG system
         self.psdp = None  # the PSDPRefiner that ended the solve, if one did
         self.d1 = self.d2 = self.d3 = self.d4 = None
@@ -166,6 +181,18 @@ class DualIPM:
 
     def _eye(self, n: int) -> torch.Tensor:
         return torch.eye(n, dtype=self.dtype, device=self.device)
+
+    def _use_kkt_free(self) -> bool:
+        """Matrix-free Schur operator gate: engages where a dense m x m M
+        would crowd the device (the analogue of the reference's sparse-
+        Schur storage decision, hdsdp_schur.c:60,227; there by pattern
+        density, here by absolute size)."""
+        mode = self.params.kkt_mode
+        if mode == "free":
+            return True
+        if mode != "auto":
+            return False
+        return self.m >= self.params.kkt_free_threshold
 
     def _use_dual_hp(self) -> bool:
         """Ozaki dual-slack assembly: only when kkt_hp is on and the
@@ -239,6 +266,8 @@ class DualIPM:
 
         kind: "inf" | "hsd" | "corr" (ref KKT_TYPE_*, hdsdp_conic.h:16-19)."""
         self._factor_stats["n_kkt"] += 1
+        if self.kkt_free:
+            return self._build_kkt_operator(kind)
         kkt = self.cones.build_kkt(self.L, self.s_lp, self.Rd, kind)
         asinv = kkt.asinv
         M = kkt.M
@@ -253,8 +282,43 @@ class DualIPM:
         self.kkt = kkt._replace(M=M, asinv=asinv)
         return self.kkt
 
+    def _build_kkt_operator(self, kind: str):
+        """Matrix-free KKT build: RHS vectors + frozen solve operator.
+
+        A full build ("inf"/"hsd") refreshes the operator state (S^-1
+        per group, LP slack, bound diagonal, exact Jacobi diagonal); a
+        corrector build refreshes the RHS only and keeps solving against
+        the operator frozen before, which is the reference's
+        reuse-the-factorized-M corrector semantics (ref HKKTBuildUp
+        KKT_TYPE_CORRECTOR, hdsdp_schur.c:256-268)."""
+        Us = self.cones.inverses(self.L)
+        kkt = self.cones.build_kkt_rhs(Us, self.s_lp, self.Rd, kind)
+        asinv = kkt.asinv
+        bound = self._zeros_m()
+        if self.which_method != "hsd":
+            li = 1.0 / self.sl
+            ui = 1.0 / self.su
+            asinv = asinv + ui - li
+            bound = li * li + ui * ui
+        if kind != "corr":
+            self._op_Us = Us
+            self._op_slp = self.s_lp
+            self._op_bound = bound
+            self._op_reg = 0.0
+            self._op_diag = self.cones.kkt_diag(Us, self.s_lp) + bound
+            self._op_escalated = None  # new operator: drop any stale factor
+        self.kkt = kkt._replace(asinv=asinv)
+        return self.kkt
+
     def regularize_kkt(self, reg_coef: float):
         """ref HKKTRegularize (hdsdp_schur.c:348-373)."""
+        if self.kkt_free:
+            if self._op_diag is None:
+                return
+            min_diag = float(torch.min(self._op_diag))
+            reg = min(reg_coef * min_diag, 1e-05)
+            self._op_reg = reg if reg >= 1e-14 else 0.0
+            return
         if self.kkt.M is None:
             return
         min_diag = float(torch.min(torch.diagonal(self.kkt.M)))
@@ -295,6 +359,11 @@ class DualIPM:
         performs ~100 solves against it, ref hdsdp_psdp.c:203-207; exact
         solves there decide the refinement step quality)."""
         self._factor_stats["n_factor"] += 1
+        if self.kkt_free:
+            # nothing to factor: solves run CG on the frozen operator
+            # state (see _build_kkt_operator)
+            self.Mfac = ("opcg", None)
+            return
         M = self.kkt.M
         p = self.params
         use_cg = not force_direct and (
@@ -321,12 +390,244 @@ class DualIPM:
         self.kkt = None
         self.Mfac = None
         self.d1 = self.d2 = self.d3 = self.d4 = None
+        self._op_Us = self._op_diag = self._op_bound = self._op_slp = None
+        self._op_escalated = None
+        self._op_pc = None
         if self._cg is not None:
             self._factor_stats["cg_n_factor"] = self._cg.n_factor
             self._factor_stats["cg_n_solve"] = self._cg.n_solve
             self._factor_stats["cg_summary"] = self._cg.summary()
             self._cg = None
         self.cones._lz_warm = None
+
+    # ------------------------------------------------------------------
+    # matrix-free Schur operator: preconditioner and the CG ladder
+    # ------------------------------------------------------------------
+    def _count(self, key: str, n: int = 1) -> None:
+        self._factor_stats[key] = self._factor_stats.get(key, 0) + n
+
+    def _build_chunked_precond(self, Us, slp, extra, diag):
+        """Materialize an equilibrated f32 copy of the operator M (given
+        scaling operands Us: S^-1 for the dual system, X for PSDP's) in
+        row chunks and return its inverted Cholesky factor (Linv, s), or
+        None.  No f64 m x m ever exists: the largest f64 temporaries are
+        a few [op_precond_chunk, m] blocks."""
+        t0 = time.time()
+        p = self.params
+        m = self.m
+        s = 1.0 / torch.sqrt(torch.clamp(diag, min=1e-300))
+        chunk = min(p.op_precond_chunk, m)
+        Ms = torch.empty((m, m), dtype=torch.float32, device=self.device)
+        for i0 in chunk_starts(m, chunk):
+            rows = self.cones.kkt_rows(Us, slp, extra, i0, chunk)
+            Ms[i0:i0 + chunk] = (s[i0:i0 + chunk, None] * rows * s[None, :]).to(torch.float32)
+        del rows
+        for dl in (0.0, 1e-06, 1e-04, 1e-02):
+            # the equilibrated M has unit diagonal, so dl is a RELATIVE
+            # boost; a boosted factor still preconditions M well
+            if dl:
+                boosted = Ms.clone()
+                boosted.diagonal().add_(dl)
+                Linv, ok = factor_scaled_f32(boosted)
+                del boosted
+            else:
+                Linv, ok = factor_scaled_f32(Ms)
+            if ok:
+                self._count("op_pc_builds")
+                self.log.info(
+                    f"operator f32 preconditioner refreshed "
+                    f"(boost {dl:g}, {time.time() - t0:.1f}s)"
+                )
+                return (Linv, s)
+        self.log.info("operator f32 preconditioner factor failed")
+        return None
+
+    def _op_build_precond(self) -> bool:
+        self._op_pc = None  # the stale factor goes before the new one is built
+        pc = self._build_chunked_precond(
+            self._op_Us, self._op_slp,
+            self._op_bound + self._op_reg,
+            self._op_diag + self._op_reg,
+        )
+        self._op_pc = pc
+        if pc is None:
+            self._op_pc_unavailable = True
+        return pc is not None
+
+    def _op_residual(self, B, X):
+        """R = B - M X on the frozen operator and its worst column norm
+        relative to max(|B|, 1)."""
+        R = B - self.cones.kkt_matvec(
+            self._op_Us, self._op_slp, self._op_bound + self._op_reg, X
+        )
+        bscale = torch.clamp(torch.linalg.vector_norm(B, dim=0), min=1.0)
+        return R, float(torch.max(torch.linalg.vector_norm(R, dim=0) / bscale))
+
+    def _op_solve(self, B: torch.Tensor) -> torch.Tensor:
+        """CG solve of M X = B [m, k] on the matrix-free operator.
+
+        Tier 0: Cholesky-preconditioned CG against a stale,
+        chunk-materialized, inverted f32 factor of M (ADPCG policy:
+        refresh on iteration regret or failure), the factorization-grade
+        endgame that the Jacobi path lacks.
+
+        The ladder below it (the counterpart of the reference's CG ->
+        dense-LDL switch, hdsdp_linsolver.c:1827-1857):
+
+          1. Jacobi-PCG at kkt_free_maxiter; when it proves inadequate
+             the f32 preconditioner is built and stays engaged,
+          2. on a stall: eight more runs of kkt_free_maxiter steps, each
+             restarted from the residual of the iterate so far,
+          3. still stalled and m small enough to afford a dense M once:
+             materialize M by the dense build, factor it with the direct
+             ladder, and solve every remaining system of this KKT round
+             against it.
+        """
+        p = self.params
+        max_iter = p.kkt_free_maxiter
+
+        def finish(X, res, n_it, B0):
+            # one host read for the step count and the worst residual
+            bscale = torch.clamp(torch.linalg.vector_norm(B0, dim=0), min=1.0)
+            n_it, worst = torch.stack([n_it.to(res.dtype), torch.max(res / bscale)]).tolist()
+            self._count("opcg_iters", int(n_it))
+            return X, worst, int(n_it)
+
+        def pcg(B0):
+            diag = self._op_diag + self._op_reg
+            pinv = 1.0 / torch.clamp(diag, min=1e-300)
+            X, res, n_it = self.cones.kkt_pcg(
+                self._op_Us, self._op_slp, self._op_bound + self._op_reg, pinv,
+                B0, abs_tol=1e-10, rel_tol=1e-10, max_iter=max_iter,
+            )
+            return finish(X, res, n_it, B0)[:2]
+
+        def pcg_chol(B0):
+            Linv, s = self._op_pc
+            X, res, n_it = self.cones.kkt_pcg_chol(
+                self._op_Us, self._op_slp, self._op_bound + self._op_reg,
+                Linv, s, B0, abs_tol=1e-10, rel_tol=1e-10, max_iter=max_iter,
+            )
+            return finish(X, res, n_it, B0)
+
+        if self._op_escalated is not None:
+            # a direct factor from a previous stall this KKT round: keep
+            # solving against it (factor-once / solve-many)
+            return self._solve_escalated(B)
+
+        use_pc = (
+            p.op_precond_cap > 0
+            and self.m <= p.op_precond_cap
+            and not self._op_pc_unavailable
+            and self.cones.kkt_rows_supported()
+        )
+        # tier 0: once engaged (a previous Jacobi solve was inadequate),
+        # the stale factor carries every later system: the ADPCG
+        # diagonal -> Cholesky escalation that STAYS escalated
+        if use_pc and self._op_pc_refresh:
+            # iteration regret was recorded on the previous system:
+            # rebuild now (NOT dropping back to Jacobi first)
+            self._op_pc_refresh = False
+            self._op_build_precond()
+        if use_pc and self._op_pc is not None:
+            X, worst, n_it = pcg_chol(B)
+            if worst <= 1e-06:
+                if n_it > p.op_precond_refresh_iters:
+                    # ADPCG iteration-regret rule: converged but slowly;
+                    # refresh before the next system
+                    self._op_pc = None
+                    self._op_pc_refresh = True
+                return X
+            # the stale factor underperformed: refresh now, retry once
+            if self._op_build_precond():
+                X, worst, n_it = pcg_chol(B)
+                if worst <= 1e-06:
+                    return X
+            self.log.info(
+                f"operator chol-PCG stalled (rel {worst:.2e}); "
+                "falling back to the Jacobi ladder"
+            )
+
+        X, worst = pcg(B)
+        if worst <= 1e-06:
+            return X
+        # Jacobi proved inadequate for this conditioning: escalate to the
+        # chunk-materialized f32 Cholesky preconditioner before the
+        # brute-force extension tiers
+        if use_pc and self._op_pc is None:
+            if self._op_build_precond():
+                Xc, worstc, _ = pcg_chol(B)
+                if worstc <= 1e-06:
+                    return Xc
+                if worstc < worst:
+                    X, worst = Xc, worstc
+        # tier 2: eight RESTARTED runs of kkt_free_maxiter steps, each on
+        # the residual of the iterate so far (not one run of eight times
+        # the budget: a restart drops the search directions, so the
+        # iterates differ)
+        self.log.info(f"operator CG stalled (rel {worst:.2e}); extending")
+        for _ in range(8):
+            R, worst2 = self._op_residual(B, X)
+            if worst2 <= 1e-06:
+                return X
+            dX, _ = pcg(R)
+            X = X + dX
+        R, worst2 = self._op_residual(B, X)
+        if worst2 <= 1e-06:
+            return X
+        # tier 3: materialize M once and direct-factor it (only when a
+        # dense m x m plus its factor plausibly fits).  The build and the
+        # factor go through the regular dense machinery.  Running out of
+        # device memory is remembered: the same build would fail at every
+        # later stall.
+        if self.m <= p.op_materialize_cap and not self._op_mat_unavailable:
+            self.log.info(
+                f"operator CG stalled twice (rel {worst2:.2e}); "
+                "materializing M for a direct factor"
+            )
+            self._count("op_escalations")
+            saved_kkt, saved_fac, saved_free = self.kkt, self.Mfac, self.kkt_free
+            try:
+                kkt = self.cones.build_kkt(self.L, self._op_slp, self.Rd, "inf")
+                d = self._op_bound + self._op_reg
+                self.kkt = kkt._replace(M=kkt.M + torch.diag(d))
+                self.kkt_free = False
+                self.factor_kkt(force_direct=True)
+                self._op_escalated = self.Mfac
+            except torch.cuda.OutOfMemoryError as e:
+                # The best CG iterate (rel ~1e-5 here) is still a usable
+                # step: the IPM corrects itself and the final DIMACS check
+                # re-solves its own consistent system.  Any other error
+                # propagates.
+                self.log.info(
+                    f"materialized escalation out of device memory ({e}); "
+                    "returning the best CG iterate"
+                )
+                self._op_escalated = None
+                self._op_mat_unavailable = True
+                return X
+            finally:
+                self.kkt, self.Mfac, self.kkt_free = saved_kkt, saved_fac, saved_free
+            return self._solve_escalated(B)
+        self.log.info(
+            f"operator CG stalled (rel {worst2:.2e}); m too large to "
+            "materialize M: returning the best iterate"
+        )
+        return X
+
+    def _solve_escalated(self, B: torch.Tensor) -> torch.Tensor:
+        saved = self.Mfac
+        self.Mfac = self._op_escalated
+        n0 = self._factor_stats["n_solve"]
+        try:
+            return torch.stack(
+                self.solve_kkt_multi([B[:, i] for i in range(B.shape[1])]), dim=1
+            )
+        finally:
+            # the originating operator solve already counted these
+            # right-hand sides
+            self._factor_stats["n_solve"] = n0
+            self.Mfac = saved
 
     def _solve_mat(self, B: torch.Tensor) -> torch.Tensor:
         kind, fac = self.Mfac
@@ -338,6 +639,8 @@ class DualIPM:
     def solve_kkt(self, rhs: torch.Tensor) -> torch.Tensor:
         self._factor_stats["n_solve"] += 1
         kind, fac = self.Mfac
+        if kind == "opcg":
+            return self._op_solve(rhs[:, None])[:, 0]
         if kind == "cg":
             x, ok = self._cg.solve_checked(fac, rhs)
             if ok:
@@ -351,6 +654,10 @@ class DualIPM:
     def solve_kkt_multi(self, rhs_list):
         """Batch several right-hand sides into one solve."""
         kind, fac = self.Mfac
+        if kind == "opcg":
+            self._factor_stats["n_solve"] += len(rhs_list)
+            X = self._op_solve(torch.stack(rhs_list, dim=1))
+            return [X[:, i] for i in range(len(rhs_list))]
         if kind == "cg":
             self._factor_stats["n_solve"] += len(rhs_list)
             X, ok = self._cg.solve_mat_checked(fac, torch.stack(rhs_list, dim=1))
@@ -924,9 +1231,10 @@ class DualIPM:
 
                 refiner = PSDPRefiner(self)
                 refined = refiner.optimize()
-                self._factor_stats["psdp_runs"] = self._factor_stats.get("psdp_runs", 0) + 1
-                self._factor_stats["psdp_iters"] = (
-                    self._factor_stats.get("psdp_iters", 0) + refiner.n_iter)
+                self._count("psdp_runs")
+                self._count("psdp_iters", refiner.n_iter)
+                if refiner.used_operator:
+                    self._count("psdp_op_runs")  # its KKT solves ran matrix-free
                 if refined:
                     # A clean PSDP return ends the solve even when not
                     # converged to tolerance (ref hdsdp_algo.c:1806-1814:

@@ -1,13 +1,15 @@
 """Cone system: batched dual buffers, factors and KKT builds.
 
-Port of the JAX package's solver/cones.py for the dense-M host loop
-(ref interface/hdsdp_conic.c + def_hdsdp_conic.h:56-107):
+Port of the JAX package's solver/cones.py for the host loop, with a dense
+M or matrix-free (ref interface/hdsdp_conic.c + def_hdsdp_conic.h:56-107):
 
   assemble  ~ HConeUpdate / coneInteriorCheckExpert buffer assembly
   factor    ~ HFpLinsysPsdCheck over every cone at once
   build_kkt ~ HKKTBuildUp (ref interface/hdsdp_schur.c:256-268)
   ratio_test~ HConeRatioTest (Lanczos / exact eigh)
   logdet    ~ HConeGetLogBarrier
+  kkt_matvec, kkt_diag, kkt_rows, kkt_pcg(_chol): the Schur system as an
+              operator, its exact diagonal, its rows in chunks, and CG on it
 
 The presolve bucket choice is copied exactly from the JAX package, so
 both packages pick the same layout for every family (diag, bounded
@@ -126,11 +128,11 @@ def inverses(L, hp: bool = False):
     return tuple(chol_ops.chol_inverse(Lg, use_dd=hp) for Lg in L)
 
 
-def build_kkt(groups, lp, L, s_lp, Rd, m: int, kind: str, hp: bool = False) -> KKTOut:
-    """kind in {"inf", "hsd", "corr"} ~ KKT_TYPE_* (ref hdsdp_conic.h:16-19)."""
-    ref = L[0] if L else s_lp
-    dt, dev = ref.dtype, ref.device
-    with_m = kind != "corr"
+def _kkt_terms(groups, lp, Us, s_lp, Rd, m: int, kind: str, with_m: bool,
+               hp: bool) -> KKTOut:
+    """The KKT sums over (group, U) pairs and the LP cone.  ``Us`` may be
+    a generator, so that a dense build holds one inverse at a time."""
+    dt, dev = (s_lp.dtype, s_lp.device) if not groups else (groups[0].C.dtype, groups[0].C.device)
     M = torch.zeros((m, m), dtype=dt, device=dev) if with_m else None
     asinv = torch.zeros((m,), dtype=dt, device=dev)
     trsas = torch.zeros((m,), dtype=dt, device=dev)
@@ -140,8 +142,7 @@ def build_kkt(groups, lp, L, s_lp, Rd, m: int, kind: str, hp: bool = False) -> K
     csinvcsinv = torch.zeros((), dtype=dt, device=dev)
     csinvrdsinv = torch.zeros((), dtype=dt, device=dev)
 
-    for ga, Lg in zip(groups, L):
-        U = chol_ops.chol_inverse(Lg, use_dd=hp)
+    for ga, U in zip(groups, Us):
         out = schur_ops.group_schur(ga, U, m, with_m=with_m, hp=hp)
         if with_m:
             M = M + out.M
@@ -180,6 +181,161 @@ def build_kkt(groups, lp, L, s_lp, Rd, m: int, kind: str, hp: bool = False) -> K
         csinvrdsinv=csinvrdsinv,
         trace_sinv=tr_u,
     )
+
+
+def build_kkt(groups, lp, L, s_lp, Rd, m: int, kind: str, hp: bool = False) -> KKTOut:
+    """kind in {"inf", "hsd", "corr"} ~ KKT_TYPE_* (ref hdsdp_conic.h:16-19)."""
+    Us = (chol_ops.chol_inverse(Lg, use_dd=hp) for Lg in L)
+    return _kkt_terms(groups, lp, Us, s_lp, Rd, m, kind, kind != "corr", hp)
+
+
+def build_kkt_rhs(groups, lp, Us, s_lp, Rd, m: int, kind: str) -> KKTOut:
+    """RHS-only KKT build from precomputed inverses: the matrix-free
+    analogue of build_kkt (M stays None; the counterpart of the
+    reference's sparse-Schur decision at hdsdp_schur.c:60,227)."""
+    return _kkt_terms(groups, lp, Us, s_lp, Rd, m, kind, False, False)
+
+
+# ----------------------------------------------------------------------
+# matrix-free Schur operator: matvec, diagonal, row chunks, PCG
+# ----------------------------------------------------------------------
+
+
+def kkt_diag(groups, lp, Us, s_lp, m: int) -> torch.Tensor:
+    """Exact diag(M) for the Jacobi preconditioner of the operator path."""
+    d = None
+    for ga, U in zip(groups, Us):
+        t = schur_ops.group_schur_diag(ga, U, m)
+        d = t if d is None else d + t
+    if lp is not None:
+        t = schur_ops.lp_schur_diag(lp, s_lp)
+        d = t if d is None else d + t
+    return d
+
+
+def kkt_matvec(groups, lp, Us, s_lp, extra_diag, V, m: int) -> torch.Tensor:
+    """M @ V for [m, k] V through the per-bucket operators, one column at
+    a time (k is 1-4 at every caller), so a column's product does not
+    depend on its neighbours.  extra_diag [m] carries the bound-cone
+    diagonal and the regularization."""
+    cols = []
+    for v in V.unbind(1):
+        out = extra_diag * v
+        for ga, U in zip(groups, Us):
+            out = out + schur_ops.group_schur_matvec(ga, U, v, m)
+        if lp is not None:
+            out = out + schur_ops.lp_schur_matvec(lp, s_lp, v)
+        cols.append(out)
+    return torch.stack(cols, dim=1)
+
+
+# The PCG loop reads its exit flag on the host once every this many
+# steps: converged columns are frozen by the ``live`` mask, so the steps
+# taken past convergence change neither X nor R, and the step count is
+# kept on the device.
+PCG_CHECK_EVERY = 4
+
+
+def pcg_body(mv, papply, B, abs_tol, rel_tol, max_iter: int,
+             check_every: int = PCG_CHECK_EVERY):
+    """Shared PCG recurrence of the matrix-free operator: k independent
+    right-hand sides with per-column recurrences (ref conjGradSolve,
+    hdsdp_linsolver.c:1446-1588).  ``papply`` is the preconditioner
+    application R -> P^-1 R.  Returns (X, column norms of the residual,
+    steps as a 0-dim int tensor); the steps count as in a loop that tests
+    ``any(res > tol)`` before each one, whatever ``check_every`` is."""
+    bnorm = torch.linalg.vector_norm(B, dim=0)
+    tol = torch.clamp(rel_tol * bnorm, min=abs_tol)
+    zero = torch.zeros((), dtype=B.dtype, device=B.device)
+    one = torch.ones((), dtype=B.dtype, device=B.device)
+    X = torch.zeros_like(B)
+    R = B
+    Z = papply(R)
+    P = Z
+    rz = torch.sum(R * Z, dim=0)
+    n_it = torch.zeros((), dtype=torch.int64, device=B.device)
+    it = 0
+    while it < max_iter:
+        res = torch.linalg.vector_norm(R, dim=0)
+        over = res > tol
+        active = over.any()
+        if it % check_every == 0 and not bool(active):  # the host read
+            break
+        n_it = n_it + active
+        live = over.to(B.dtype)
+        Q = mv(P)
+        pq = torch.sum(P * Q, dim=0)
+        alpha = torch.where(pq > 0, rz / torch.where(pq == 0, one, pq), zero) * live
+        X = X + alpha[None, :] * P
+        R = R - alpha[None, :] * Q
+        Z = papply(R)
+        rz_new = torch.sum(R * Z, dim=0)
+        beta = torch.where(rz > 0, rz_new / torch.where(rz == 0, one, rz), zero)
+        P = Z + beta[None, :] * P
+        rz = rz_new
+        it += 1
+    return X, torch.linalg.vector_norm(R, dim=0), n_it
+
+
+def kkt_pcg(groups, lp, Us, s_lp, extra_diag, pinv, B, m: int, abs_tol: float,
+            rel_tol: float, max_iter: int, check_every: int = PCG_CHECK_EVERY):
+    """Jacobi-preconditioned CG on the matrix-free Schur operator (the
+    Jacobi branch of conjGradSolve).  Returns (X, resnorm [k], steps)."""
+
+    def mv(V):
+        return kkt_matvec(groups, lp, Us, s_lp, extra_diag, V, m)
+
+    return pcg_body(mv, lambda R: pinv[:, None] * R, B, abs_tol, rel_tol,
+                    max_iter, check_every)
+
+
+def kkt_pcg_chol(groups, lp, Us, s_lp, extra_diag, Linv, s, B, m: int,
+                 abs_tol: float, rel_tol: float, max_iter: int,
+                 check_every: int = PCG_CHECK_EVERY):
+    """Cholesky-preconditioned CG on the matrix-free operator.  ``Linv``
+    is the inverted equilibrated f32 factor of a (possibly STALE,
+    ADPCG-style) chunk-materialized M; applying it is two f32 products.
+    CG polishes the f32 and staleness error: for kappa(M) ~ 1e10 the
+    preconditioned system has kappa ~ 1 + eps_f32 * kappa ~ 1e3, tens of
+    steps where the Jacobi path stalls for thousands (ref conjGradSolve's
+    Cholesky branch + the ADPCG refresh policy,
+    hdsdp_linsolver.c:1446-1588)."""
+
+    def mv(V):
+        return kkt_matvec(groups, lp, Us, s_lp, extra_diag, V, m)
+
+    def papply(R):
+        Rf = (s[:, None] * R).to(Linv.dtype)
+        T = Linv.T @ (Linv @ Rf)
+        return s[:, None] * T.to(B.dtype)
+
+    return pcg_body(mv, papply, B, abs_tol, rel_tol, max_iter, check_every)
+
+
+def chunk_starts(m: int, chunk: int):
+    """Row starts of the chunked KKT builds: multiples of ``chunk`` and,
+    where they do not reach m, a last chunk at m - chunk that overlaps
+    the one before (every chunk has the same height)."""
+    i0s = list(range(0, m - chunk + 1, chunk))
+    if not i0s or i0s[-1] + chunk < m:
+        i0s.append(m - chunk)
+    return i0s
+
+
+def kkt_rows(groups, lp, Us, s_lp, bound_extra, i0: int, m: int, chunk: int) -> torch.Tensor:
+    """Rows [i0, i0+chunk) of the full KKT matrix (SDP groups + LP +
+    the diagonal bound/regularization terms), [chunk, m] f64."""
+    out = None
+    for ga, U in zip(groups, Us):
+        r = schur_ops.group_schur_rows(ga, U, i0, chunk, m)
+        if r is None:
+            raise ValueError("kkt_rows on a flat group: check kkt_rows_supported first")
+        out = r if out is None else out + r
+    if lp is not None:
+        r = schur_ops.lp_schur_rows(lp, s_lp, i0, chunk)
+        out = r if out is None else out + r
+    torch.diagonal(out, offset=i0).add_(bound_extra[i0:i0 + chunk])
+    return out
 
 
 def interior_check(groups, lp, dC, scal, y, dEye, tau, lo, up, hp: bool = False):
@@ -370,6 +526,54 @@ class ConeSystem:
     def inverses(self, L):
         """U = S^-1 per group."""
         return inverses(L, hp=self.kkt_hp)
+
+    # -- matrix-free Schur operator (sparse-Schur analogue) ---------------
+    def build_kkt_rhs(self, Us, s_lp, Rd, kind: str) -> KKTOut:
+        """KKT RHS vectors only, M never materialized (operator mode)."""
+        return build_kkt_rhs(self.groups, self.lp, Us, s_lp, Rd, self.m, kind)
+
+    def kkt_diag(self, Us, s_lp):
+        """Exact diag(M): the Jacobi preconditioner of operator mode."""
+        return kkt_diag(self.groups, self.lp, Us, s_lp, self.m)
+
+    def kkt_matvec(self, Us, s_lp, extra_diag, V):
+        """M @ V ([m, k]) through the per-bucket operators."""
+        return kkt_matvec(self.groups, self.lp, Us, s_lp, extra_diag, V, self.m)
+
+    def kkt_pcg(self, Us, s_lp, extra_diag, pinv, B, abs_tol=1e-10,
+                rel_tol=1e-10, max_iter=600):
+        """Jacobi-PCG solve of M X = B on the operator."""
+        return kkt_pcg(self.groups, self.lp, Us, s_lp, extra_diag, pinv, B,
+                       self.m, abs_tol, rel_tol, max_iter)
+
+    def kkt_pcg_chol(self, Us, s_lp, extra_diag, Linv, s, B, abs_tol=1e-10,
+                     rel_tol=1e-10, max_iter=600):
+        """Cholesky-preconditioned CG on the operator (stale f32 factor
+        of a chunk-materialized M; see kkt_pcg_chol)."""
+        return kkt_pcg_chol(self.groups, self.lp, Us, s_lp, extra_diag, Linv,
+                            s, B, self.m, abs_tol, rel_tol, max_iter)
+
+    def kkt_rows_supported(self) -> bool:
+        """True when every group is row-chunkable (slot-major layout,
+        dense slots allowed), so that the f32 preconditioner can be
+        materialized in chunks."""
+        return all(ga.Fs is not None for ga in self.groups)
+
+    def kkt_rows(self, Us, s_lp, bound_extra, i0: int, chunk: int):
+        """Rows [i0, i0+chunk) of the full KKT matrix, [chunk, m]."""
+        return kkt_rows(self.groups, self.lp, Us, s_lp, bound_extra, i0,
+                        self.m, chunk)
+
+    def kkt_full_from_rows(self, Us, s_lp, bound_extra, chunk: int = 2048):
+        """The full [m, m] KKT matrix assembled from row chunks, for
+        factor-once consumers (PSDP) at sizes where the temporaries of
+        the one-piece build would crowd the device."""
+        m = self.m
+        chunk = min(chunk, m)
+        M = torch.empty((m, m), dtype=self.dtype, device=self.device)
+        for i0 in chunk_starts(m, chunk):
+            M[i0:i0 + chunk] = self.kkt_rows(Us, s_lp, bound_extra, i0, chunk)
+        return M
 
     def interior_check(self, dC, scal, y, dEye, tau, lo, up):
         return interior_check(self.groups, self.lp, dC, scal, y, dEye, tau,

@@ -12,6 +12,12 @@ SAME U = Sbar^-1 used for the recovery congruence (as in the JAX
 package), so the triple (mu*, U, dy) is self-consistent:
 
     (M(U) + D_bound) dy = b/mu* - (ASinv(U) + u^-1 - l^-1).
+
+In operator mode (``ipm.kkt_free``, M never materialized), and above
+``op_materialize_cap`` rows in any mode, the re-solve runs CG on the
+matrix-free operator at the maker point: against a fresh row-chunked f32
+Cholesky preconditioner where the layout allows one, else restarted
+Jacobi-PCG runs.
 """
 
 from __future__ import annotations
@@ -122,11 +128,13 @@ def _batch_min_eval(Xg: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------------
 
 
-def _maker_kkt(cones, b, mk_mu, mk_y, perturb, lo, up, m: int, hp: bool):
+def _maker_kkt(cones, b, mk_mu, mk_y, perturb, lo, up, m: int, hp: bool,
+               with_m: bool = True):
     """Factor Sbar at the maker point (with a diagonal shift ladder for
     the last accurate maker, which sits closest to the cone boundary),
     compute U = Sbar^-1, and build (M + bound diag, rhs) from the SAME U.
-    Returns (ok, Us, sbar_lp, M, d_bound, rhs)."""
+    Returns (ok, Us, sbar_lp, M, d_bound, rhs); M is None without
+    ``with_m`` (the matrix-free re-solve)."""
     groups, lp = cones.groups, cones.lp
     Sbar, sbar_lp = cone_ops.assemble(groups, lp, 1.0, -1.0, mk_y, perturb)
     ok, Lbar = cone_ops.factor(Sbar, sbar_lp)
@@ -149,22 +157,25 @@ def _maker_kkt(cones, b, mk_mu, mk_y, perturb, lo, up, m: int, hp: bool):
         k += 1
     Us = cone_ops.inverses(Lbar, hp=hp)
 
-    M = torch.zeros((m, m), dtype=b.dtype, device=b.device)
+    M = torch.zeros((m, m), dtype=b.dtype, device=b.device) if with_m else None
     asinv = torch.zeros((m,), dtype=b.dtype, device=b.device)
     for ga, U in zip(groups, Us):
-        out = schur_ops.group_schur(ga, U, m, with_m=True, hp=hp)
-        M = M + out.M
+        out = schur_ops.group_schur(ga, U, m, with_m=with_m, hp=hp)
+        if with_m:
+            M = M + out.M
         asinv = asinv + out.asinv
     if lp is not None:
-        out = schur_ops.lp_schur(lp, sbar_lp, m, with_m=True)
-        M = M + out.M
+        out = schur_ops.lp_schur(lp, sbar_lp, m, with_m=with_m)
+        if with_m:
+            M = M + out.M
         asinv = asinv + out.asinv
 
     # bound cone at the maker point, tau = 1 (ref sBoundConeGetKKT)
     li = 1.0 / (mk_y - lo)
     ui = 1.0 / (up - mk_y)
     d_bound = li * li + ui * ui
-    M = M + torch.diag(d_bound)
+    if with_m:
+        M = M + torch.diag(d_bound)
     rhs = b / mk_mu - (asinv + ui - li)
     return bool(ok), Us, sbar_lp, M, d_bound, rhs
 
@@ -188,18 +199,77 @@ def _chol_solve_ladder(M: torch.Tensor, rhs: torch.Tensor):
     return True, x
 
 
+def _restarted_pcg(solve, matvec, rhs, runs: int = 8):
+    """X with M X ~ rhs from up to ``runs`` CG runs, each restarted on the
+    residual of the iterate so far (a restart drops the search directions,
+    so eight runs are not one run of eight times the budget); stops when
+    the residual is below 1e-10 max(|rhs|, 1)."""
+    B = rhs[:, None]
+    X = torch.zeros_like(B)
+    R = B
+    goal = 1e-10 * max(float(torch.linalg.vector_norm(rhs)), 1.0)
+    for _ in range(runs):
+        X = X + solve(R)
+        R = B - matvec(X)
+        if float(torch.max(torch.linalg.vector_norm(R, dim=0))) <= goal:
+            break
+    return X[:, 0]
+
+
+def _solve_maker_dy(ipm, Us, sbar_lp, M, d_bound, rhs):
+    """dy from the check-time KKT: dense Cholesky when M exists, else CG
+    on the matrix-free operator, with a fresh chunk-materialized f32
+    Cholesky preconditioner at the MAKER point when the layout supports it
+    (the Jacobi-only re-solve stalls at endgame conditioning and leaves
+    err1/err5 at ~1e-6; the chol-PCG reaches the direct path's grade)."""
+    if M is not None:
+        ok, dy = _chol_solve_ladder(M, rhs)
+        return dy if ok else None
+    cones = ipm.cones
+    p = ipm.params
+    diag = cones.kkt_diag(Us, sbar_lp) + d_bound
+    # the check is one-time: a sane budget per run even when the solve
+    # ran with a starved kkt_free_maxiter
+    budget = max(p.kkt_free_maxiter, 600)
+
+    def matvec(X):
+        return cones.kkt_matvec(Us, sbar_lp, d_bound, X)
+
+    pc = None
+    if p.op_precond_cap > 0 and ipm.m <= p.op_precond_cap and cones.kkt_rows_supported():
+        try:
+            pc = ipm._build_chunked_precond(Us, sbar_lp, d_bound, diag)
+        except torch.cuda.OutOfMemoryError as e:
+            ipm.log.info(f"check-time preconditioner out of device memory ({e}); "
+                         "re-solving with Jacobi-PCG")
+    if pc is not None:
+        Linv, s = pc
+        return _restarted_pcg(
+            lambda R: cones.kkt_pcg_chol(Us, sbar_lp, d_bound, Linv, s, R,
+                                         1e-10, 1e-10, budget)[0],
+            matvec, rhs)
+    pinv = 1.0 / torch.clamp(diag, min=1e-300)
+    return _restarted_pcg(
+        lambda R: cones.kkt_pcg(Us, sbar_lp, d_bound, pinv, R,
+                                1e-10, 1e-10, budget)[0],
+        matvec, rhs)
+
+
 def _consistent_maker_solve(ipm, maker):
     """(Us, sbar_lp, dy) for the maker, or None if Sbar is not PD."""
-    if ipm.m > ipm.params.op_materialize_cap:
-        raise NotImplementedError("operator mode (matrix-free check re-solve)")
+    # Never materialize and factor the full m x m M at check time in
+    # operator mode or above the operator's materialization cap: the
+    # consistency dy then comes from CG on the matrix-free operator.
+    with_m = not ipm.kkt_free and ipm.m <= ipm.params.op_materialize_cap
     ok, Us, sbar_lp, M, d_bound, rhs = _maker_kkt(
         ipm.cones, ipm.b, maker.mu, maker.y, ipm.perturb,
-        ipm.bound_lo, ipm.bound_up, ipm.m, bool(ipm.cones.kkt_hp),
+        ipm.bound_lo, ipm.bound_up, ipm.m, bool(ipm.cones.kkt_hp), with_m,
     )
     if not ok:
         return None
-    ok, dy = _chol_solve_ladder(M, rhs)
-    if not ok:
+    dy = _solve_maker_dy(ipm, Us, sbar_lp, M, d_bound, rhs)
+    del M, rhs  # free the m x m system before the recovery congruences
+    if dy is None:
         return None
     return Us, sbar_lp, dy
 

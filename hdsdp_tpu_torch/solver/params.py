@@ -60,12 +60,26 @@ class Params:
     # "auto" takes from kkt_cg_threshold rows on
     kkt_solver: str = "auto"
     kkt_cg_threshold: int = 4096
-    # matrix-free Schur operator: not ported; "free", or "auto" at m >=
-    # kkt_free_threshold, raises
+    # Matrix-free Schur operator (the sparse-Schur-storage analogue, ref
+    # hdsdp_schur.c:60,227): "free" never materializes the m x m M; CG
+    # solves apply M v = A(S^-1 (sum_j v_j A_j) S^-1) per bucket,
+    # O(m + n^2) memory.  "auto" engages it from kkt_free_threshold rows
+    # on; "dense" forces materialization.  kkt_free_maxiter is the step
+    # budget of one CG run.
     kkt_mode: str = "auto"
     kkt_free_threshold: int = 20000
     kkt_free_maxiter: int = 600
+    # stall escalation: when CG stalls through the whole ladder, M is
+    # materialized once and factored directly, up to this row count; the
+    # DIMACS check re-solves matrix-free above it in any mode
     op_materialize_cap: int = 32768
+    # Cholesky preconditioner of the operator: M is materialized row chunk
+    # by row chunk (op_precond_chunk rows) into an equilibrated f32
+    # buffer, factored and inverted in f32, and kept (possibly stale) as
+    # the CG preconditioner, up to op_precond_cap rows (0 disables it:
+    # Jacobi only); refreshed when a converged solve needed more than
+    # op_precond_refresh_iters steps (the ADPCG iteration-regret rule).
+    # The three sizes are the JAX package's, chosen for a 16 GB device.
     op_precond_cap: int = 32768
     op_precond_chunk: int = 2048
     op_precond_refresh_iters: int = 80

@@ -13,9 +13,10 @@ dual cone (S + a*dS >= 0) and the primal factor (X + a*dX >= 0).
 On any failure the dual iterate is restored (ref HPSDPIRecover, :31-47).
 
 X / XSX / dX are batched per block group; the X-weighted Schur build runs
-the same buckets as the dual build (U -> X).  Port of the JAX package's
-dense branch; its operator-mode branch and its row-chunked M build come
-with the matrix-free Schur operator.
+the same buckets as the dual build (U -> X).  After a matrix-free dual
+solve the refiner either materializes its X-weighted M once (in row chunks
+from 8192 rows on) or, where a dense M is not affordable, runs every solve
+as CG on the X-weighted operator.
 """
 
 from __future__ import annotations
@@ -95,6 +96,7 @@ class PSDPRefiner:
         self.X: Optional[List[torch.Tensor]] = None
         self.converged = False
         self.n_iter = 0  # refinement iterations taken
+        self.used_operator = False  # the KKT solves ran matrix-free
 
     def get_primal(self) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
         if self.X is None:
@@ -133,6 +135,24 @@ class PSDPRefiner:
         Xscal = list(X)
         ipm.log.info("HDSDP nearly converges. Primal refinement starts.")
 
+        # Operator-mode composition: when the dual solve ran matrix-free
+        # the refiner either materializes its own X-weighted M once (the
+        # reference's factor-once/solve-many, hdsdp_psdp.c:203-207) while
+        # m is small enough to afford a dense system, or runs every PSDP
+        # KKT solve through the same matrix-free CG machinery with X in
+        # place of S^-1 (M_ij = tr(A_i X A_j X) has the identical
+        # operator form).
+        use_operator = ipm.kkt_free and (
+            m > p.op_materialize_cap
+            # a dense f64 M plus factor workspace budgeted at 24 m^2
+            # bytes against 12 GB (the JAX package's constant, kept so
+            # that both packages take the same branch)
+            or 24.0 * m * m > 12e9
+            or ipm._op_mat_unavailable
+        )
+        self.used_operator = use_operator
+        op_state: dict = {}
+
         def fail(reason: str) -> bool:
             # ref HPSDPIRecover + "Primal method fails. Switch back to
             # dual method." (hdsdp_psdp.c:449-455)
@@ -142,7 +162,35 @@ class PSDPRefiner:
             return False
 
         def factor_primal_kkt():
-            M = _build_primal_kkt(groups, Xscal, m, hp=bool(ipm.cones.kkt_hp))
+            if use_operator:
+                # the "factor" is the exact Jacobi diagonal of the
+                # X-weighted Schur operator (the matrix-free analogue of
+                # the reference's one-time HKKTFactorize), upgraded to the
+                # chunk-materialized f32 Cholesky preconditioner when the
+                # layout supports it (the dual operator path's machinery)
+                diag = ipm.cones.kkt_diag(tuple(Xscal), None)
+                reg = 1e-16 * float(torch.max(diag)) + 1e-300
+                op_state["extra"] = torch.full_like(diag, reg)
+                op_state["pinv"] = 1.0 / torch.clamp(diag + reg, min=1e-300)
+                op_state["pc"] = None
+                if (
+                    p.op_precond_cap > 0
+                    and m <= p.op_precond_cap
+                    and ipm.cones.kkt_rows_supported()
+                ):
+                    op_state["pc"] = ipm._build_chunked_precond(
+                        tuple(Xscal), None, op_state["extra"], diag + reg
+                    )
+                return
+
+            # from 8192 rows on the X-weighted M comes from row chunks,
+            # whose temporaries are [chunk, m] and not [m, m]
+            if ipm.cones.kkt_rows_supported() and m >= 8192:
+                M = ipm.cones.kkt_full_from_rows(
+                    tuple(Xscal), None, ipm._zeros_m(), chunk=p.op_precond_chunk
+                )
+            else:
+                M = _build_primal_kkt(groups, Xscal, m, hp=bool(ipm.cones.kkt_hp))
             # regularize (ref HKKTRegularize with 1e-16 coefficient)
             reg = 1e-16 * float(torch.max(torch.diagonal(M))) + 1e-300
             ipm.kkt = KKTOut(
@@ -152,8 +200,49 @@ class PSDPRefiner:
                 trace_sinv=None,
             )
             # factor-once / solve-many: bypass the CG policy (ref
-            # HKKTFactorize once, hdsdp_psdp.c:203-207)
-            ipm.factor_kkt(force_direct=True)
+            # HKKTFactorize once, hdsdp_psdp.c:203-207).  Under operator
+            # mode factor_kkt would short-circuit to the dual operator
+            # state, so the flag is dropped around the primal factor.
+            saved_free = ipm.kkt_free
+            ipm.kkt_free = False
+            try:
+                ipm.factor_kkt(force_direct=True)
+            finally:
+                ipm.kkt_free = saved_free
+
+        def solve_primal_kkt(rhs):
+            """M dy = rhs against the X-weighted system (direct factor,
+            chol-preconditioned CG, or restarted Jacobi-PCG runs)."""
+            if not use_operator:
+                return ipm.solve_kkt(rhs)
+            cones = ipm.cones
+            Xs, extra = tuple(Xscal), op_state["extra"]
+            budget = max(p.kkt_free_maxiter, 600)
+            bscale = max(float(torch.linalg.vector_norm(rhs)), 1.0)
+            B = rhs[:, None]
+            sol = torch.zeros_like(B)
+            R = B
+            if op_state["pc"] is not None:
+                Linv, s = op_state["pc"]
+                sol, res, _ = cones.kkt_pcg_chol(
+                    Xs, None, extra, Linv, s, B,
+                    abs_tol=1e-10, rel_tol=1e-10, max_iter=budget,
+                )
+                if float(torch.max(res)) <= 1e-06 * bscale:
+                    return sol[:, 0]
+                # keep the chol iterate: the Jacobi runs below start
+                # from its residual
+                R = B - cones.kkt_matvec(Xs, None, extra, sol)
+            for _ in range(8):
+                dsol, _, _ = cones.kkt_pcg(
+                    Xs, None, extra, op_state["pinv"], R,
+                    abs_tol=1e-10, rel_tol=1e-10, max_iter=budget,
+                )
+                sol = sol + dsol
+                R = B - cones.kkt_matvec(Xs, None, extra, sol)
+                if float(torch.linalg.vector_norm(R)) <= 1e-08 * bscale:
+                    break
+            return sol[:, 0]
 
         factor_primal_kkt()
 
@@ -169,7 +258,7 @@ class PSDPRefiner:
             # rhs = A(XSX/mu - X) + rp  (ref :240-255)
             buf = [_xsx(Xg, Sg) / mu - Xg for Xg, Sg in zip(X, ipm.S)]
             rhs = ipm.cones.atx(buf, None) + rp
-            dy = ipm.solve_kkt(rhs) * mu
+            dy = solve_primal_kkt(rhs) * mu
 
             # dual ratio test; dS = -A'dy (Rd = 0)
             dS, _ = ipm.cones.assemble(0.0, -1.0, dy, 0.0)

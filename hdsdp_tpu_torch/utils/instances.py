@@ -1,6 +1,7 @@
 """The named instances that the card-side scripts solve (``chip_smoke.py``
 at the repository root and ``utils.stage_profile``): synthetic problems at
-the sizes SDPLIB publishes for their family, nothing cut.
+the sizes SDPLIB publishes for their family, nothing cut, and one theta
+instance above the operator-mode threshold.
 
     name: (generator in models.synthetic, its arguments, solver overrides)
 """
@@ -24,6 +25,16 @@ INSTANCES = {
     "maxG55": ("maxcut_sdpa", dict(n=5000, seed=0), {}),
     # m = 1540, three 55^2 blocks: flat bucket, g = 3
     "control11": ("control_sdpa", dict(k=55, n_sys=2, seed=0), {}),
+    # m = 25001, one 700^2 block: above kkt_free_threshold, so the default
+    # path runs matrix-free (support bucket, f32 chunked preconditioner,
+    # PSDP's operator branch, the matrix-free check re-solve)
+    "theta-m25001": ("theta_sdpa", dict(n=700, n_edges=25000, seed=0), {}),
+    # m = 1000, one 300^2 block: generic slot-major bucket with about 500
+    # dense coefficients, strictly feasible, PSDP (300 < 1000 / 3).  The
+    # generic-bucket instance for kkt_mode="free": CG cannot carry the gpp
+    # family (its Schur system walks the whole ladder to the direct factor
+    # at every iteration, in the JAX package too)
+    "random-m1000": ("random_sdpa", dict(m=1000, block_dims=[300], seed=0), {}),
 }
 
 

@@ -3,19 +3,27 @@
     python -m hdsdp_tpu_torch.utils.stage_profile [NAME] [--out FILE]
 
 NAME is one of the instances of ``utils.instances`` (default ``gpp500``;
-also ``maxG51``, ``torusg3-15``, ``theta6``, ``maxG55``, ``control11``),
-solved through ``solve_sdpa_file`` with that instance's overrides: once to
-warm up, then five times (gpp500) or three times (the larger ones) with
-host timers around the cone system's stages (``ConeSystem`` methods, the M
-factor and solves of ``DualIPM``, the PSDP refiner, the DIMACS check), then
-once with CUDA events around the parts of the KKT build, then once more
-under ``torch.profiler`` to count what ran on the device.  It reports:
+also ``maxG51``, ``torusg3-15``, ``theta6``, ``maxG55``, ``control11``,
+``theta-m25001``), solved through ``solve_sdpa_file`` with that instance's
+overrides: once to warm up, then five times (gpp500), twice (theta-m25001)
+or three times (the others) with host timers around the cone system's
+stages (``ConeSystem`` methods, the M factor and solves of ``DualIPM``,
+the operator KKT build, the PSDP refiner, the DIMACS check), then once with
+CUDA events around the parts of the KKT build, then once more under
+``torch.profiler`` to count what ran on the device.  It reports:
 
   - the wall time of every timed solve (host clock, ending in a device
     sync) and, for the median solve, each stage's calls, host milliseconds
     and share of the wall; what no timer covers is the host loop itself;
     the solve's peak device memory and its factor statistics (with
     AdaptiveCG's call ledger where it ran, and PSDP's iterations);
+  - for the same solve, the parts of operator mode wherever they run
+    (inside the M solves, PSDP and the check): the CG ladder
+    ``_op_solve``, every PCG run, the preconditioner build
+    ``_build_chunked_precond`` and, inside it, the row chunks and the f32
+    factor with its inverse.  These timers synchronize the device at both
+    ends, so each part owns the device time of its kernels; they nest in
+    the stages above and in one another and do not add up to the wall;
   - from the event-timed solve: the device milliseconds between the start
     and the end of every ``chol_inverse``, ``group_schur`` and
     ``group_dual`` call (idle gaps of the device inside a call included),
@@ -54,11 +62,22 @@ STAGES = {  # report name -> (owner, method)
     "interior_check": ("cones", "interior_check"),
     "ratio_test": ("cones", "ratio_test"),
     "add_step_check": ("cones", "add_step_check"),
+    "op_kkt_build": ("ipm", "_build_kkt_operator"),
     "m_factor": ("ipm", "factor_kkt"),
     "m_solve": ("ipm", "solve_kkt"),
     "m_solve_multi": ("ipm", "solve_kkt_multi"),
     "psdp": ("psdp", "optimize"),
     "dimacs_check": ("dimacs", "check_solution"),
+}
+
+# operator mode's parts, timed wherever they run (nested, device-synced)
+OP_PARTS = {
+    "op_solve": ("ipm", "_op_solve"),
+    "kkt_pcg": ("cones", "kkt_pcg"),
+    "kkt_pcg_chol": ("cones", "kkt_pcg_chol"),
+    "op_precond_build": ("ipm", "_build_chunked_precond"),
+    "kkt_rows": ("cones", "kkt_rows"),
+    "factor_scaled_f32": ("algo", "factor_scaled_f32"),
 }
 
 # parts of the KKT build (and the dual assembly) timed with CUDA events
@@ -94,6 +113,35 @@ def _install_timers(owners, acc):
     def undo():
         for target, method, fn in saved:
             setattr(target, method, fn)
+
+    return undo
+
+
+def _install_synced_timers(owners, acc, torch):
+    """Wrap each part of operator mode so that its calls and its time
+    between two device syncs add up in acc, nested or not.  Returns the
+    undo."""
+    saved = []
+    for part, (owner, name) in OP_PARTS.items():
+        target = owners[owner]
+        fn = getattr(target, name)
+        saved.append((target, name, fn))
+
+        def timed(*args, _fn=fn, _part=part, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                acc[_part][0] += 1
+                acc[_part][1] += time.perf_counter() - t0
+
+        setattr(target, name, timed)
+
+    def undo():
+        for target, name, fn in saved:
+            setattr(target, name, fn)
 
     return undo
 
@@ -162,14 +210,15 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from hdsdp_tpu_torch.ops import chol, hpmm, schur
-    from hdsdp_tpu_torch.solver import dimacs
+    from hdsdp_tpu_torch.solver import algo, dimacs
     from hdsdp_tpu_torch.solver.algo import DualIPM
     from hdsdp_tpu_torch.solver.cones import ConeSystem
     from hdsdp_tpu_torch.solver.psdp import PSDPRefiner
     from hdsdp_tpu_torch.solver.solver import solve_sdpa_file
 
-    owners = {"cones": ConeSystem, "ipm": DualIPM, "dimacs": dimacs, "psdp": PSDPRefiner}
-    reps = 5 if args.name == "gpp500" else 3
+    owners = {"cones": ConeSystem, "ipm": DualIPM, "dimacs": dimacs, "psdp": PSDPRefiner,
+              "algo": algo}
+    reps = {"gpp500": 5, "theta-m25001": 2}.get(args.name, 3)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -191,13 +240,17 @@ def main(argv=None) -> int:
         runs = []
         for _ in range(reps):
             acc = defaultdict(lambda: [0, 0.0])
+            op_acc = defaultdict(lambda: [0, 0.0])
+            undo_op = _install_synced_timers(owners, op_acc, torch)  # innermost wrappers
             undo = _install_timers(owners, acc)
             try:
                 r, wall = solve()
             finally:
                 undo()
+                undo_op()
             runs.append((wall, {k: list(v) for k, v in acc.items()},
-                         torch.cuda.max_memory_allocated()))
+                         torch.cuda.max_memory_allocated(),
+                         {k: list(v) for k, v in op_acc.items()}))
         records = {p: {"events": [], "peak_extra_bytes": 0} for p in PARTS}
         undo = _install_events({"chol": chol, "schur": schur}, records, torch)
         try:
@@ -215,8 +268,8 @@ def main(argv=None) -> int:
             r, prof_wall = solve()
         own = {"hpmm_pairs": hpmm.KERNEL_LAUNCHES, "hpmm_slice": hpmm.SLICE_LAUNCHES}
 
-    walls = [w for w, _, _ in runs]
-    med_wall, med_acc, med_peak = sorted(runs, key=lambda x: x[0])[len(runs) // 2]
+    walls = [w for w, _, _, _ in runs]
+    med_wall, med_acc, med_peak, med_op = sorted(runs, key=lambda x: x[0])[len(runs) // 2]
     stages = {
         s: {"calls": c, "host_ms": 1e3 * t, "share": t / med_wall}
         for s, (c, t) in sorted(med_acc.items(), key=lambda kv: -kv[1][1])
@@ -224,6 +277,11 @@ def main(argv=None) -> int:
     covered = sum(t for _, t in med_acc.values())
     stages["host_loop_rest"] = {"calls": None, "host_ms": 1e3 * (med_wall - covered),
                                 "share": (med_wall - covered) / med_wall}
+
+    operator_parts = {
+        s: {"calls": c, "synced_ms": 1e3 * t, "share": t / med_wall}
+        for s, (c, t) in sorted(med_op.items(), key=lambda kv: -kv[1][1])
+    }
 
     kernels, copies_d2h, by_name = [], 0, defaultdict(lambda: [0, 0.0])
     for ev in prof.events():
@@ -254,6 +312,7 @@ def main(argv=None) -> int:
         "warm_wall_median_s": statistics.median(walls),
         "peak_device_bytes_of_median_solve": med_peak,
         "stages_of_median_solve": stages,
+        "operator_parts_of_median_solve": operator_parts,
         "event_timed_solve": {"wall_s": event_wall, "parts": parts},
         "profiled_solve": {
             "wall_s": prof_wall,

@@ -277,7 +277,7 @@ def test_cone_system_layout_argument():
 @pytest.mark.parametrize("override,what", [
     (dict(fused="phase"), "fused"),
     (dict(fused=True), "fused"),
-    (dict(kkt_mode="free"), "operator mode"),
+    (dict(cone_fp="dd"), "ddchol"),
     (dict(kkt_fp="dd"), "ddchol"),
 ])
 def test_unported_options_raise(override, what):
