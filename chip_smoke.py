@@ -21,18 +21,31 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              host's launch cost is not what is measured), and compute each
              kernel's bound from the shapes;
   4. slice   solve the SDPLIB gpp500-class instance (gpp_sdpa(n=500,
-             seed=0), m = 501, one 500 x 500 block) with kkt_hp="on"
-             through solve_sdpa_file, count the kernels' launches in that
-             run, and hold the result to the JAX package's reference;
-             then hold a small solve on the card to the same solve on the
-             host;
-  5. families  solve, through solve_sdpa_file with default parameters, the
-             five other named instances of utils/instances.py at SDPLIB size
+             seed=0), m = 501, one 500 x 500 block) with kkt_hp="on" and
+             fused=False (the host loop) through solve_sdpa_file, count the
+             kernels' launches in that run, and hold the result to the JAX
+             package's host-loop reference; then hold a small host-loop
+             solve on the card to the same solve on the host;
+  5. families  solve, through solve_sdpa_file with fused=False, the five
+             other named instances of utils/instances.py at SDPLIB size
              (diag, bounded-support and flat Schur buckets, AdaptiveCG, PSDP)
              and hold each to its status, its DIMACS errors and the JAX
-             package's objective; two of them (maxG51, theta6) are solved
-             twice and must repeat bit for bit.  One JSON line per solve.
-  6. operator  solve theta-m25001 (theta_sdpa(n=700, n_edges=25000, seed=0),
+             package's host-loop objective; two of them (maxG51, theta6) are
+             solved twice and must repeat bit for bit.  One JSON line per
+             solve.  (Phases 4 and 5 hold the host loop, which the default
+             default path no longer takes at these sizes.)
+  6. fused   the default path: solve gpp500 (kkt_hp="on"), maxG51,
+             torusg3-15, theta6, maxG55 and control11 through solve_sdpa_file
+             with default parameters, which pick the fused phase bodies
+             ("iter") by themselves, and hold each to "iter", its status, its
+             DIMACS errors and the objective of the JAX package's fused run
+             (FUSED_REFS); gpp500 launches K1 and K1s, theta6 hands off to
+             PSDP, maxG51 repeats bit for bit; one more solve of each under
+             torch.profiler, fused and host loop, counts device kernels and
+             host reads per iteration.  Then gpp n = 40 (m = 41: "phase") on
+             the card against the host, and "phase" against "iter" on the
+             card, bit for bit.  One JSON line per instance.
+  7. operator  solve theta-m25001 (theta_sdpa(n=700, n_edges=25000, seed=0),
              m = 25,001, nothing cut) through solve_sdpa_file with default
              parameters, which engage the matrix-free Schur operator by
              themselves, and hold it: optimal, no dense M in the dual solve,
@@ -86,6 +99,23 @@ FAMILY_REFS = {
 FAMILY_CG = ("theta6", "maxG55")  # m >= kkt_cg_threshold: AdaptiveCG must engage
 FAMILY_PSDP = ("theta6",)  # one cone, n < m / 3: the refiner must run
 FAMILY_TWICE = ("maxG51", "theta6")  # solved twice: the trajectory must repeat
+
+# References for the fused phase (the default path, "iter" at these
+# sizes): (iterations, d_obj) of the JAX package's default path ("iter"
+# too) on the CPU for the same generator call and overrides, `JAX_PLATFORMS=cpu
+# python tests/jax_reference.py NAME --fused auto` on 6 cores of the card's
+# host (19-376 s each).  d_obj is held to 1e-7 relative; the iteration count
+# is printed beside the card's and the host loop's, not held.
+FUSED_REFS = {
+    "gpp500": (76, -1940.485090473088),
+    "maxG51": (34, -261.4270223134442),
+    "torusg3-15": (39, -788.3130300314208),
+    "theta6": (57, -63.61066844871744),
+    "maxG55": (45, -1346.6413695329475),
+    "control11": (32, -22.03302972951802),
+}
+FUSED_TWICE = ("maxG51",)  # solved twice: the trajectory must repeat
+FUSED_PSDP = ("theta6",)  # the fused phase B must hand off to PSDP
 
 # theta-m25001 in operator mode.  DIMACS max is held to 1e-4: PSDP at
 # n = 700 contracts the gap by at most 1 - 1/sqrt(700) an iteration, cannot
@@ -485,7 +515,8 @@ def _family_phase(torch, solve_sdpa_file, instances, hpmm):
                 torch.cuda.reset_peak_memory_stats()
                 k0 = hpmm.KERNEL_LAUNCHES + hpmm.SLICE_LAUNCHES
                 t0 = time.perf_counter()
-                r = solve_sdpa_file(path, device="cuda", verbose=False, **overrides)
+                r = solve_sdpa_file(path, device="cuda", verbose=False, fused=False,
+                                    **overrides)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 runs.append(r)
@@ -524,6 +555,99 @@ def _family_phase(torch, solve_sdpa_file, instances, hpmm):
                 raise AssertionError(f"{name}: two solves in one process differ")
         d_objs[name] = runs[0].d_obj
     return d_objs
+
+
+def _fused_phase(torch, solve_sdpa_file, instances, hpmm, profiled_solve, tmp):
+    """The six SDPLIB-size instances through the default path, which
+    picks the fused phase bodies ("iter"); raises unless each meets its
+    holds.  Returns gpp500's (K1, K1s) launches, counted from 0 around
+    that solve."""
+    host_refs = dict(FAMILY_REFS, gpp500=(REF_ITERS, REF_D_OBJ))
+    gpp500_launches = None
+    for name, (ref_iters, ref_d_obj) in FUSED_REFS.items():
+        path = os.path.join(tmp, name + ".dat-s")
+        overrides = instances.write_instance(name, path)
+
+        def solve(**over):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            r = solve_sdpa_file(path, device="cuda", verbose=False, **dict(overrides, **over))
+            torch.cuda.synchronize()
+            return r, time.perf_counter() - t0
+
+        runs = []
+        for _ in range(2 if name in FUSED_TWICE else 1):
+            hpmm.KERNEL_LAUNCHES = hpmm.SLICE_LAUNCHES = 0
+            r, wall = solve()
+            launches = (hpmm.KERNEL_LAUNCHES, hpmm.SLICE_LAUNCHES)
+            runs.append(r)
+            peak = torch.cuda.max_memory_allocated()
+        if name == "gpp500":
+            gpp500_launches = launches
+        _, _, fc = profiled_solve(solve)
+        _, _, hc = profiled_solve(lambda: solve(fused=False))
+        st = r.stats
+        rel_d = abs(r.d_obj - ref_d_obj) / abs(ref_d_obj)
+        print(json.dumps({
+            "fused_phase": name, "m": int(r.y.shape[0]), "fused": st.get("fused"),
+            "status": r.status, "iterations": r.n_iters,
+            "jax_fused_iterations": ref_iters,
+            "host_loop_iterations": hc["iterations"],
+            "jax_host_loop_iterations": host_refs[name][0],
+            "d_obj": r.d_obj, "p_obj": r.p_obj, "rel_d_obj_err": rel_d, "dimacs_max": float(abs(r.dimacs).max()), "wall_s": wall,
+            "peak_device_bytes": peak, "psdp_runs": st.get("psdp_runs", 0),
+            "hpmm_pairs_launches": launches[0], "hpmm_slice_launches": launches[1],
+            "per_iteration_fused": fc["per_iteration"],
+            "per_iteration_host_loop": hc["per_iteration"],
+            "profiled_wall_s_fused_host_loop": [fc["wall_s"], hc["wall_s"]],
+            "device_busy_share_fused_host_loop": [fc["device_busy_share_of_profiled_wall"],
+                                                  hc["device_busy_share_of_profiled_wall"]],
+            "device": r.device,
+        }), flush=True)
+        checks = {
+            "iter": st.get("fused") == "iter" and fc["fused"] == "iter"
+            and hc["fused"] is False,
+            "status": r.status == "PRIMAL_DUAL_OPTIMAL",
+            "dimacs": float(abs(r.dimacs).max()) <= 1e-6,
+            "d_obj": rel_d <= 1e-7,
+            "device": r.device.startswith("cuda"),
+            "own_kernels": (launches[0] > 0 and launches[1] == 2 * launches[0])
+            if name == "gpp500" else launches == (0, 0),
+            "psdp": name not in FUSED_PSDP or st.get("psdp_runs", 0) > 0,
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"{name} on the fused path: checks failed: {checks}")
+        if len(runs) == 2:
+            a, b = runs
+            same = (a.d_obj == b.d_obj and a.p_obj == b.p_obj and a.n_iters == b.n_iters
+                    and bool((torch.as_tensor(a.y) == torch.as_tensor(b.y)).all()))
+            print(f"[fused] {name} solved twice: d_obj {a.d_obj!r} / {b.d_obj!r}, iterations "
+                  f"{a.n_iters} / {b.n_iters}, y bit-equal: {same}", flush=True)
+            if not same:
+                raise AssertionError(f"{name}: two fused solves in one process differ")
+
+    # -- "phase" at gpp n = 40: card against host, "phase" against "iter" ---
+    from hdsdp_tpu_torch.io.sdpa import write_sdpa
+    from hdsdp_tpu_torch.models.synthetic import gpp_sdpa
+
+    path = os.path.join(tmp, "gpp40.dat-s")
+    write_sdpa(gpp_sdpa(n=40, seed=0), path)
+    rg = solve_sdpa_file(path, device="cuda", verbose=False)
+    rc = solve_sdpa_file(path, device="cpu", verbose=False)
+    ri = solve_sdpa_file(path, device="cuda", verbose=False, fused="iter")
+    rel_small = abs(rg.d_obj - rc.d_obj) / abs(rc.d_obj)
+    same = (rg.d_obj == ri.d_obj and rg.p_obj == ri.p_obj and rg.n_iters == ri.n_iters
+            and bool((torch.as_tensor(rg.y) == torch.as_tensor(ri.y)).all()))
+    print(f"[fused] gpp40 default ({rg.stats['fused']}) card vs host: {rg.status}/{rc.status} "
+          f"iterations {rg.n_iters}/{rc.n_iters} rel d_obj diff {rel_small:.3e}; card "
+          f"\"phase\" vs \"iter\": d_obj {rg.d_obj!r} / {ri.d_obj!r}, iterations "
+          f"{rg.n_iters} / {ri.n_iters}, y bit-equal: {same}", flush=True)
+    if not (rg.stats["fused"] == rc.stats["fused"] == "phase" and ri.stats["fused"] == "iter"
+            and rg.status == rc.status == "PRIMAL_DUAL_OPTIMAL"
+            and abs(rg.n_iters - rc.n_iters) <= 1 and rel_small <= 1e-7 and same):
+        raise AssertionError("gpp40 on the fused path: card/host or phase/iter disagree")
+    return gpp500_launches
 
 
 def _operator_phase(torch, solve_sdpa_file, instances, hpmm, dense_d_obj, tmp):
@@ -575,7 +699,8 @@ def _operator_phase(torch, solve_sdpa_file, instances, hpmm, dense_d_obj, tmp):
             "cg_n_factor": st.get("cg_n_factor"), "psdp_runs": st.get("psdp_runs", 0),
             "psdp_iters": st.get("psdp_iters", 0), "psdp_op_runs": st.get("psdp_op_runs", 0),
             "hpmm_pairs_launches": hpmm.KERNEL_LAUNCHES - k0,
-            "hpmm_slice_launches": hpmm.SLICE_LAUNCHES - s0, "device": r.device,
+            "hpmm_slice_launches": hpmm.SLICE_LAUNCHES - s0, "fused": st.get("fused"),
+            "device": r.device,
         }
         print(json.dumps(line), flush=True)
         return r, line
@@ -593,6 +718,7 @@ def _operator_phase(torch, solve_sdpa_file, instances, hpmm, dense_d_obj, tmp):
         "op_pc_builds": line["op_pc_builds"] >= 1,
         "op_escalations": line["op_escalations"] == 0,  # tier 3 would allocate the 5 GB M
         "psdp_matrix_free": line["psdp_op_runs"] == line["psdp_runs"],
+        "host_loop": r.stats["fused"] is False,  # operator mode: never fused
         "dimacs": line["dimacs_max"] <= OPERATOR_DIMACS_BOUND,
         "d_obj": abs(r.d_obj - OPERATOR_JAX_REF[1]) <= 1e-6 * abs(OPERATOR_JAX_REF[1]),
         "own_kernels": line["hpmm_pairs_launches"] == 0 and line["hpmm_slice_launches"] == 0,
@@ -605,7 +731,7 @@ def _operator_phase(torch, solve_sdpa_file, instances, hpmm, dense_d_obj, tmp):
     # PSDP through its flatten exit, after different numbers of iterations,
     # at relative gaps of about 1e-5, and each late iteration moves d_obj by
     # about 1e-6 relative: the two objectives are held to 1e-5.
-    rd, dline = solve(name, kkt_mode="dense")
+    rd, dline = solve(name, kkt_mode="dense", fused=False)
     rel = abs(r.d_obj - rd.d_obj) / abs(rd.d_obj)
     print(f"[operator] {name}: d_obj {r.d_obj!r}, relative to the JAX package's CPU run "
           f"({OPERATOR_JAX_REF[1]!r}, {OPERATOR_JAX_REF[0]} iterations) "
@@ -620,7 +746,7 @@ def _operator_phase(torch, solve_sdpa_file, instances, hpmm, dense_d_obj, tmp):
     # -- the diag shortcut and the generic slot-major row build, forced ----
     # (the generic bucket on random-m1000, whose dense solve comes first:
     # CG cannot carry gpp500, see utils/instances.py)
-    rd, _ = solve("random-m1000")
+    rd, _ = solve("random-m1000", fused=False)
     dense_d_obj = dict(dense_d_obj, **{"random-m1000": rd.d_obj})
     for name in ("maxG51", "random-m1000"):
         r, line = solve(name, kkt_mode="free")
@@ -671,6 +797,7 @@ def main() -> int:
     from hdsdp_tpu_torch.ops import cuda_build, hpmm, hpmm_cases
     from hdsdp_tpu_torch.solver.solver import solve_sdpa_file
     from hdsdp_tpu_torch.utils import instances
+    from hdsdp_tpu_torch.utils.stage_profile import profiled_solve
 
     dev = torch.device("cuda", 0)
     smi = _smi_line()
@@ -700,7 +827,7 @@ def main() -> int:
         hpmm.KERNEL_LAUNCHES = 0
         hpmm.SLICE_LAUNCHES = 0
         t0 = time.perf_counter()
-        r = solve_sdpa_file(path, device="cuda", kkt_hp="on", verbose=False)
+        r = solve_sdpa_file(path, device="cuda", kkt_hp="on", verbose=False, fused=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = hpmm.KERNEL_LAUNCHES
@@ -727,8 +854,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "gpp40.dat-s")
         write_sdpa(gpp_sdpa(n=40, seed=0), path)
-        rg = solve_sdpa_file(path, device="cuda", kkt_hp="on", verbose=False)
-        rc = solve_sdpa_file(path, device="cpu", kkt_hp="on", verbose=False)
+        rg = solve_sdpa_file(path, device="cuda", kkt_hp="on", verbose=False, fused=False)
+        rc = solve_sdpa_file(path, device="cpu", kkt_hp="on", verbose=False, fused=False)
     rel_small = abs(rg.d_obj - rc.d_obj) / abs(rc.d_obj)
     print(f"[slice] gpp40 card vs host: {rg.status}/{rc.status} iters "
           f"{rg.n_iters}/{rc.n_iters} rel d_obj diff {rel_small:.3e}", flush=True)
@@ -738,6 +865,11 @@ def main() -> int:
 
     # -- the other families at SDPLIB size, default parameters -------------
     dense_d_obj = _family_phase(torch, solve_sdpa_file, instances, hpmm)
+
+    # -- the default path: the fused phase bodies -------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        fused_launches = _fused_phase(torch, solve_sdpa_file, instances, hpmm,
+                                      profiled_solve, tmp)
 
     # -- operator mode: m = 25,001 by default, two instances forced --------
     with tempfile.TemporaryDirectory() as tmp:
@@ -777,7 +909,9 @@ def main() -> int:
     }]
     print(f"[summary] whole hpmm at the pair shape: {tp['hpmm_device']:.4f} ms on the device, "
           f"{tp['hpmm']:.4f} ms per eager call; f64 torch.matmul {tp['matmul']:.4f} / "
-          f"{tp['matmul_eager']:.4f} ms; gpp500 solve wall {wall:.3f} s", flush=True)
+          f"{tp['matmul_eager']:.4f} ms; gpp500 solve wall {wall:.3f} s; launches "
+          f"(K1, K1s) of the host-loop gpp500 solve {(launches, slice_launches)}, of the fused "
+          f"(default) one {fused_launches}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(_smi_line())
     print(json.dumps({"ok": True, "device": {

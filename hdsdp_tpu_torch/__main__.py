@@ -2,8 +2,9 @@
 
     python -m hdsdp_tpu_torch problem.dat-s [--device cuda|cpu] [--json]
 
-Takes the JAX package's flags; ``--no-fused`` is accepted (the port runs
-the host loop either way).  The LP solver for .mps files is not ported.
+Takes the JAX package's flags; ``--no-fused`` runs the host-driven loop
+instead of the fused phase bodies.  The LP solver for .mps files is not
+ported.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ def main(argv=None) -> int:
     ap.add_argument("--max-iter", type=int, default=None)
     ap.add_argument("--time-limit", type=float, default=None)
     ap.add_argument("--no-fused", action="store_true",
-                    help="use the host-driven loop (the only one ported)")
+                    help="use the host-driven loop, not the fused phase bodies")
     ap.add_argument("--device", default="cuda",
                     help="torch device to solve on (default: cuda)")
     args = ap.parse_args(argv)

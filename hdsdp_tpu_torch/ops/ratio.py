@@ -9,6 +9,12 @@ HLanczosSolve, and the matvec in hdsdp_conic_sdp.c:462-505): the step is
     residual-based safeguard (ref hdsdp_lanczos.c:161-292).  The adaptive
     form stops early once the top Ritz pair converged; its convergence
     test is a host read every ``check_freq`` steps.
+
+On a non-finite matrix ``torch.linalg.eigh``/``eigvalsh`` raise where
+``jnp.linalg.eigh`` returns NaN pairs; ``nan_safe=True`` gives the JAX
+behaviour (the fused IPM bodies run on through a failed Schur factor, as
+the JAX programs do).  On CUDA both calls wait for the device to check
+their ``info``.
 """
 
 from __future__ import annotations
@@ -20,11 +26,24 @@ from hdsdp_tpu_torch.ops.chol import congruence
 INF_STEP = 1e30
 
 
-def exact_ratio_test(L: torch.Tensor, dS: torch.Tensor) -> torch.Tensor:
+def _eig(fn, T, nan_safe: bool):
+    """fn(T) for fn in (eigh, eigvalsh); with nan_safe, a matrix holding
+    a non-finite entry gets NaN outputs instead of an error."""
+    if not nan_safe:
+        return fn(T)
+    bad = ~torch.isfinite(T).all(dim=-1).all(dim=-1)
+    out = fn(torch.where(bad[..., None, None], 0.0, T))
+    if isinstance(out, torch.Tensor):
+        return torch.where(bad[..., None], torch.nan, out)
+    w, Y = out
+    return torch.where(bad[..., None], torch.nan, w), torch.where(bad[..., None, None], torch.nan, Y)
+
+
+def exact_ratio_test(L: torch.Tensor, dS: torch.Tensor, nan_safe: bool = False) -> torch.Tensor:
     """Per-matrix max step, batched over leading dims. Returns [...]."""
     B = congruence(L, dS)
     B = 0.5 * (B + B.mT)
-    lam_min = torch.linalg.eigvalsh(B)[..., 0]
+    lam_min = _eig(torch.linalg.eigvalsh, B, nan_safe)[..., 0]
     return torch.where(
         lam_min < 0.0, -1.0 / torch.clamp(lam_min, max=-1e-300), INF_STEP
     )
@@ -96,7 +115,7 @@ def _start_basis(L, v0, k):
     return V, T
 
 
-def lanczos_ratio_test(L, dS, v0, krylov: int = 30):
+def lanczos_ratio_test(L, dS, v0, krylov: int = 30, nan_safe: bool = False):
     """Fixed-depth batched Lanczos bound on the max step (conservative,
     like the reference).  Returns (steps [...], warm start for the next
     call)."""
@@ -104,11 +123,12 @@ def lanczos_ratio_test(L, dS, v0, krylov: int = 30):
     V, T = _start_basis(L, v0, k)
     for i in range(k):
         _lanczos_step(L, dS, V, T, i)
-    w_eigs, Y = torch.linalg.eigh(T[..., :k, :k])
+    w_eigs, Y = _eig(torch.linalg.eigh, T[..., :k, :k], nan_safe)
     return _bound_from_pairs(L, dS, V[..., :k, :], w_eigs, Y)
 
 
-def lanczos_ratio_test_adaptive(L, dS, v0, krylov: int = 30, check_freq: int = 3):
+def lanczos_ratio_test_adaptive(L, dS, v0, krylov: int = 30, check_freq: int = 3,
+                                nan_safe: bool = False):
     """Early-exit Lanczos bound (ref hdsdp_lanczos.c:186-292): the same
     recurrence, stopped as soon as every matrix in the batch has a
     converged top Ritz pair, |beta_k * y1[k]| < 1e-4, checked every
@@ -128,7 +148,7 @@ def lanczos_ratio_test_adaptive(L, dS, v0, krylov: int = 30, check_freq: int = 3
         _lanczos_step(L, dS, V, T, i)
         i += 1
         if i % check_freq == 0 or i >= k:
-            w_eigs, Y = torch.linalg.eigh(T[..., :i, :i])
+            w_eigs, Y = _eig(torch.linalg.eigh, T[..., :i, :i], nan_safe)
             resi = torch.abs(T[..., i, i - 1] * Y[..., i - 1, -1])
             if bool(torch.max(resi) < 1e-04):  # host sync
                 break
@@ -148,6 +168,7 @@ def block_ratio(
     v0=None,
     return_warm: bool = False,
     adaptive=None,
+    nan_safe: bool = False,
 ):
     """Per-matrix max step for one block group, exact eigh vs Lanczos by
     mode and dimension.
@@ -157,7 +178,7 @@ def block_ratio(
     check, and a 0.995 safety factor absorbs the reduced precision."""
     n = L.shape[-1]
     if mode == "exact" or (mode == "auto" and n < AUTO_LANCZOS_DIM):
-        steps = exact_ratio_test(L, dS)
+        steps = exact_ratio_test(L, dS, nan_safe)
         return (steps, None) if return_warm else steps
     dt = torch.float32 if use_f32 else L.dtype
     ar = torch.arange(n, device=L.device)
@@ -175,7 +196,7 @@ def block_ratio(
     if adaptive is None:
         adaptive = return_warm
     fn = lanczos_ratio_test_adaptive if adaptive else lanczos_ratio_test
-    step, warm = fn(L.to(dt), dS.to(dt), start, krylov=krylov)
+    step, warm = fn(L.to(dt), dS.to(dt), start, krylov=krylov, nan_safe=nan_safe)
     step = step.to(L.dtype)
     if use_f32:
         step = step * 0.995

@@ -27,8 +27,13 @@ preconditioner is an f32 Cholesky factor of M assembled in row chunks.
 Near convergence phase B hands one-cone problems with n < m/3 to the PSDP
 primal refinement (solver.psdp).
 
-Not ported (raise NotImplementedError): the fused whole-phase programs,
-the double-single factors and the multi-device mesh.
+``DualIPM.solve`` picks its loop as the JAX package does
+(``choose_fused_mode``): by default the fused, device-resident phase
+bodies of solver.fused below the memory budget, and this loop above it,
+in operator mode or with ``fused=False``.
+
+Not ported (raise NotImplementedError): the double-single factors and the
+multi-device mesh.
 """
 
 from __future__ import annotations
@@ -72,11 +77,32 @@ class Maker:
     dy: Optional[torch.Tensor] = None
 
 
+def choose_fused_mode(m: int, n_max: int, n_sum: int, kkt_free: bool, params: Params):
+    """The IPM mode the JAX package's DualIPM.solve picks
+    (hdsdp_tpu/solver/algo.py:1779-1812, without its mesh branch):
+    "phase" for small problems, "iter" while the estimated resident state
+    128 (m^2 + n_max n_sum) bytes fits ``fused_hbm_budget``, else False,
+    the host loop; ``fused=True`` means "phase"; operator mode
+    (``kkt_free``) always runs the host loop."""
+    fused = params.fused
+    if fused == "auto":
+        est_bytes = 8.0 * 16.0 * (float(m) ** 2 + float(n_max) * float(n_sum))
+        if m <= params.fused_max_m and n_max <= params.fused_max_n:
+            fused = "phase"
+        elif est_bytes <= params.fused_hbm_budget:
+            fused = "iter"
+        else:
+            fused = False
+    elif fused is True:
+        fused = "phase"
+    return False if kkt_free else fused
+
+
 def _check_supported(params: Params, m: int) -> None:
     """Raise for configurations whose code paths are not ported yet."""
     p = params
-    if p.fused not in ("auto", False):
-        raise NotImplementedError(f"fused={p.fused!r}: the fused programs")
+    if not (isinstance(p.fused, bool) or p.fused in ("auto", "phase", "iter")):
+        raise ValueError(f"fused={p.fused!r}: expected True, False, 'auto', 'phase' or 'iter'")
     if p.kkt_fp == "dd" or p.cone_fp == "dd":
         raise NotImplementedError("ddchol")
     if p.dtype != "float64":
@@ -164,6 +190,7 @@ class DualIPM:
         self.Mfac = None  # ("chol", L), ("lu", (LU, pivots)), ("cg", M) or ("opcg", None)
         self._cg: Optional[AdaptiveCG] = None  # made at the first CG system
         self.psdp = None  # the PSDPRefiner that ended the solve, if one did
+        self._lz_fused = None  # the fused bodies' Lanczos warm vectors, across phases
         self.d1 = self.d2 = self.d3 = self.d4 = None
 
         # primal solution makers (ref def_hdsdp.h:107-118)
@@ -1462,7 +1489,14 @@ class DualIPM:
     # main entry (ref HDSDP_Conic_Solve, :1853-1870)
     # ------------------------------------------------------------------
     def solve(self, d_only: bool = False):
+        fused = choose_fused_mode(self.m, self.f.n_max_cone_dim, self.f.n_sum_cone_dims,
+                                  self.kkt_free, self.params)
+        self._factor_stats["fused"] = fused
         try:
+            if fused:
+                from hdsdp_tpu_torch.solver.fused import solve_fused
+
+                return solve_fused(self, d_only, mode=fused)
             self.psdp = None
             self.phase_a(d_only)
             if self.status == SUSPECT_INFEAS_OR_UNBOUNDED:

@@ -41,16 +41,21 @@ class Params:
     dtype: str = "float64"
     ratio_test: str = "auto"  # "exact" | "lanczos" | "auto"
     lanczos_dim: int = 30
-    # Lanczos depth of the fused programs (accepted; the host loop's
-    # adaptive Lanczos runs at lanczos_dim)
+    # fixed Lanczos depth of the fused bodies, warm-started from the last
+    # call's Ritz image (the host loop's adaptive Lanczos runs at
+    # lanczos_dim)
     lanczos_warm_dim: int = 16
     verbose: bool = True
     model_notes: str = ""
     # stage profiling of the host loop (accepted, not ported yet)
     profile: bool = False
-    # IPM driver: "auto" and False run the host loop.  The fused
-    # whole-phase programs ("phase", "iter", True) are not ported and
-    # raise NotImplementedError.
+    # IPM mode (solver.fused, algo.choose_fused_mode): "phase" runs each
+    # phase to its end in one call, "iter" drives the same iteration body
+    # with a wall-clock check, True means "phase", False the host loop;
+    # "auto" takes "phase" for m <= fused_max_m and blocks <= fused_max_n,
+    # "iter" while 128 (m^2 + n_max n_sum) bytes <= fused_hbm_budget, else
+    # the host loop.  The budget is the JAX package's, sized for 16 GB of
+    # TPU memory and kept because it decides which loop runs.
     fused: object = "auto"
     fused_max_m: int = 512
     fused_max_n: int = 256
@@ -89,8 +94,9 @@ class Params:
     kkt_dd_threshold: int = 768
     cone_fp: str = "auto"
     cone_dd_threshold: int = 768
-    # mixed-precision Schur solves of the fused bodies (accepted; unused
-    # by the host loop)
+    # mixed-precision Schur solves of the fused bodies: "on" factors M in
+    # f32 and refines in f64; "auto" engages it on a TPU only, so never
+    # here (unused by the host loop)
     kkt_mp: str = "auto"
     kkt_mp_threshold: int = 768
     # Ozaki-sliced Schur ASSEMBLY (slot-major groups): FU = Fs@U and the

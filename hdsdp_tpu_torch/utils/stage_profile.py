@@ -1,16 +1,22 @@
 """Where a solve's time goes, stage by stage, on one CUDA card.
 
-    python -m hdsdp_tpu_torch.utils.stage_profile [NAME] [--out FILE]
+    python -m hdsdp_tpu_torch.utils.stage_profile [NAME] [--fused false] [--out FILE]
 
 NAME is one of the instances of ``utils.instances`` (default ``gpp500``;
 also ``maxG51``, ``torusg3-15``, ``theta6``, ``maxG55``, ``control11``,
 ``theta-m25001``), solved through ``solve_sdpa_file`` with that instance's
-overrides: once to warm up, then five times (gpp500), twice (theta-m25001)
-or three times (the others) with host timers around the cone system's
-stages (``ConeSystem`` methods, the M factor and solves of ``DualIPM``,
-the operator KKT build, the PSDP refiner, the DIMACS check), then once with
-CUDA events around the parts of the KKT build, then once more under
-``torch.profiler`` to count what ran on the device.  It reports:
+overrides on the default path (the fused phase bodies below their memory
+budget, ``Result.stats["fused"]`` says which mode ran), or with
+``--fused false`` on the host loop: once to warm up, then five times
+(gpp500), twice (theta-m25001) or three times (the others) with host
+timers around the stages (for the host loop: ``ConeSystem`` methods, the
+M factor and solves of ``DualIPM``, the operator KKT build; for the fused
+bodies: the functions of ``solver.fused`` of the same names; both: the
+PSDP refiner and the DIMACS check), then once with CUDA events around the
+parts of the KKT build, then once more under ``torch.profiler`` to count
+what ran on the device.  On the default path it also profiles one
+host-loop solve of the same instance, so that one call gives both
+loops' counts per iteration.  It reports:
 
   - the wall time of every timed solve (host clock, ending in a device
     sync) and, for the median solve, each stage's calls, host milliseconds
@@ -34,7 +40,11 @@ CUDA events around the parts of the KKT build, then once more under
     per iteration, the device-to-host copies (the host's reads), the
     device's busy time as the union of the kernels' intervals, and the
     kernels that took most device time, by name;
-  - the launches of the port's own CUDA kernels (their wrappers' counters).
+  - the launches of the port's own CUDA kernels (their wrappers' counters);
+  - per iteration of the profiled solve: wall ms, device kernels, host
+    reads, and (fused) the fused module's own decision reads
+    (``Result.stats["fused_host_reads"]``), for the path run and, on the
+    default path, for the host loop too.
 
 The result is printed as one JSON object, and written to ``--out`` when
 that is given.  A stage's host time includes waiting
@@ -70,6 +80,19 @@ STAGES = {  # report name -> (owner, method)
     "dimacs_check": ("dimacs", "check_solution"),
 }
 
+# the same stages of the fused bodies (solver.fused functions)
+FUSED_STAGES = {
+    "build_kkt": ("fused", "build_kkt"),
+    "m_factor": ("fused", "factor_m"),
+    "m_solve": ("fused", "solve_m"),
+    "ratio_test": ("fused", "cone_ratio"),
+    "interior_check": ("fused", "check_interior"),
+    "add_step_check": ("fused", "add_step_to_checker"),
+    "prox_measure": ("fused", "prox_measure"),
+    "psdp": STAGES["psdp"],
+    "dimacs_check": STAGES["dimacs_check"],
+}
+
 # operator mode's parts, timed wherever they run (nested, device-synced)
 OP_PARTS = {
     "op_solve": ("ipm", "_op_solve"),
@@ -85,13 +108,13 @@ PARTS = {"chol_inverse": ("chol", "chol_inverse"), "group_schur": ("schur", "gro
          "group_dual": ("schur", "group_dual")}
 
 
-def _install_timers(owners, acc):
+def _install_timers(owners, acc, stages=STAGES):
     """Wrap each stage so that its host time and calls add up in acc;
     nested stages (the DIMACS check re-enters the cone system) count in
     the outermost one only.  Returns a function that undoes the wrapping."""
     depth = [0]
     saved = []
-    for stage, (owner, method) in STAGES.items():
+    for stage, (owner, method) in stages.items():
         target = owners[owner]
         fn = getattr(target, method)
         saved.append((target, method, fn))
@@ -193,11 +216,60 @@ def _union_length(intervals):
     return busy
 
 
+def profiled_solve(solve):
+    """Run ``solve()`` (returning (Result, wall s)) once under
+    ``torch.profiler``; returns (Result, wall, counts) where counts holds
+    the device kernels (every device event that is not a memory copy or
+    memset), the device-to-host copies (the host's reads), the device's
+    busy ms (the union of the kernels' intervals), the kernels that took
+    most device time, and each per iteration."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        r, wall = solve()
+    kernels, copies_d2h, by_name = [], 0, defaultdict(lambda: [0, 0.0])
+    # the raw events: building prof.events() takes about a minute a solve
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        name = ev.name()
+        if name.startswith(("Memcpy", "Memset")):
+            copies_d2h += "DtoH" in name
+            continue
+        start, dur = ev.start_ns() / 1e3, ev.duration_ns() / 1e3  # us
+        kernels.append((start, start + dur))
+        short = name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+        by_name[short][0] += 1
+        by_name[short][1] += dur / 1e3
+    busy = _union_length(kernels) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    n = max(r.n_iters, 1)
+    return r, wall, {
+        "wall_s": wall,
+        "iterations": r.n_iters,
+        "fused": r.stats.get("fused"),
+        "device_kernels": len(kernels),
+        "device_to_host_copies": copies_d2h,
+        "device_busy_ms": busy,
+        "device_busy_share_of_profiled_wall": busy / (1e3 * wall),
+        "top_kernels_ms": {k: {"calls": c, "ms": t} for k, (c, t) in top},
+        "per_iteration": {
+            "wall_ms": 1e3 * wall / n,
+            "device_kernels": len(kernels) / n,
+            "host_reads": copies_d2h / n,
+            "fused_decision_reads": r.stats.get("fused_host_reads", 0) / n,
+        },
+    }
+
+
 def main(argv=None) -> int:
     from hdsdp_tpu_torch.utils.instances import INSTANCES, write_instance
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("name", nargs="?", default="gpp500", choices=sorted(INSTANCES))
+    ap.add_argument("--fused", choices=("auto", "false"), default="auto",
+                    help="the IPM mode: the default choice, or the host loop")
     ap.add_argument("--out", default=None, help="also write the JSON to this file")
     args = ap.parse_args(argv)
 
@@ -206,18 +278,16 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("stage_profile: needs a CUDA card", file=sys.stderr)
         return 1
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from hdsdp_tpu_torch.ops import chol, hpmm, schur
-    from hdsdp_tpu_torch.solver import algo, dimacs
+    from hdsdp_tpu_torch.solver import algo, dimacs, fused
     from hdsdp_tpu_torch.solver.algo import DualIPM
     from hdsdp_tpu_torch.solver.cones import ConeSystem
     from hdsdp_tpu_torch.solver.psdp import PSDPRefiner
     from hdsdp_tpu_torch.solver.solver import solve_sdpa_file
 
     owners = {"cones": ConeSystem, "ipm": DualIPM, "dimacs": dimacs, "psdp": PSDPRefiner,
-              "algo": algo}
+              "algo": algo, "fused": fused}
     reps = {"gpp500": 5, "theta-m25001": 2}.get(args.name, 3)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -227,22 +297,25 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, args.name + ".dat-s")
         overrides = write_instance(args.name, path)
+        if args.fused == "false":
+            overrides["fused"] = False
 
-        def solve():
+        def solve(**over):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            r = solve_sdpa_file(path, device="cuda", verbose=False, **overrides)
+            r = solve_sdpa_file(path, device="cuda", verbose=False, **dict(overrides, **over))
             torch.cuda.synchronize()
             return r, time.perf_counter() - t0
 
         r, first_wall = solve()  # builds the kernels, starts the libraries
+        stages_of = FUSED_STAGES if r.stats.get("fused") else STAGES
         runs = []
         for _ in range(reps):
             acc = defaultdict(lambda: [0, 0.0])
             op_acc = defaultdict(lambda: [0, 0.0])
             undo_op = _install_synced_timers(owners, op_acc, torch)  # innermost wrappers
-            undo = _install_timers(owners, acc)
+            undo = _install_timers(owners, acc, stages_of)
             try:
                 r, wall = solve()
             finally:
@@ -264,9 +337,12 @@ def main(argv=None) -> int:
             for p, rec in records.items()
         }
         hpmm.KERNEL_LAUNCHES = hpmm.SLICE_LAUNCHES = 0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            r, prof_wall = solve()
+        r, prof_wall, counts = profiled_solve(solve)
         own = {"hpmm_pairs": hpmm.KERNEL_LAUNCHES, "hpmm_slice": hpmm.SLICE_LAUNCHES}
+        host_loop = None
+        if r.stats.get("fused"):
+            solve(fused=False)  # warm-up of the host loop's own calls
+            host_loop = profiled_solve(lambda: solve(fused=False))[2]
 
     walls = [w for w, _, _, _ in runs]
     med_wall, med_acc, med_peak, med_op = sorted(runs, key=lambda x: x[0])[len(runs) // 2]
@@ -283,27 +359,17 @@ def main(argv=None) -> int:
         for s, (c, t) in sorted(med_op.items(), key=lambda kv: -kv[1][1])
     }
 
-    kernels, copies_d2h, by_name = [], 0, defaultdict(lambda: [0, 0.0])
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        name = ev.name
-        if name.startswith(("Memcpy", "Memset")):
-            copies_d2h += "DtoH" in name
-            continue
-        kernels.append((ev.time_range.start, ev.time_range.end))
-        short = name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
-        by_name[short][0] += 1
-        by_name[short][1] += (ev.time_range.end - ev.time_range.start) / 1e3
-    busy = _union_length(kernels) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     gen, kw, _ = INSTANCES[args.name]
+    counts["device_busy_share_of_median_wall"] = (
+        counts["device_busy_ms"] / (1e3 * statistics.median(walls)))
+    counts["own_kernel_launches"] = own
     out = {
         "card": card,
         "torch": torch.__version__,
         "instance": f"{args.name}: {gen}({', '.join(f'{k}={v}' for k, v in kw.items())})"
                     + "".join(f", {k}={v}" for k, v in overrides.items()),
         "m": int(r.y.shape[0]),
+        "fused": r.stats.get("fused"),
         "status": r.status, "iters": r.n_iters, "d_obj": r.d_obj,
         "dimacs_max": float(abs(r.dimacs).max()),
         "factor_stats": r.stats,
@@ -314,18 +380,8 @@ def main(argv=None) -> int:
         "stages_of_median_solve": stages,
         "operator_parts_of_median_solve": operator_parts,
         "event_timed_solve": {"wall_s": event_wall, "parts": parts},
-        "profiled_solve": {
-            "wall_s": prof_wall,
-            "device_kernels": len(kernels),
-            "device_kernels_per_iteration": len(kernels) / max(r.n_iters, 1),
-            "device_to_host_copies": copies_d2h,
-            "device_to_host_copies_per_iteration": copies_d2h / max(r.n_iters, 1),
-            "device_busy_ms": busy,
-            "device_busy_share_of_profiled_wall": busy / (1e3 * prof_wall),
-            "device_busy_share_of_median_wall": busy / (1e3 * statistics.median(walls)),
-            "top_kernels_ms": {k: {"calls": c, "ms": t} for k, (c, t) in top},
-            "own_kernel_launches": own,
-        },
+        "profiled_solve": counts,
+        "profiled_host_loop_solve": host_loop,
     }
     text = json.dumps(out, indent=1)
     print(text)

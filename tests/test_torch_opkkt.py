@@ -336,7 +336,7 @@ LADDER = {
 def theta60_dense():
     jp, tp = _problems("theta60")
     return (JSolver(jp, verbose=False, fused=False).optimize(),
-            TSolver(tp, device="cpu", verbose=False).optimize())
+            TSolver(tp, device="cpu", verbose=False, fused=False).optimize())
 
 
 @pytest.fixture(scope="module", params=sorted(LADDER))
@@ -396,7 +396,7 @@ def test_ladder_iteration_counts(ladder_runs):
 def test_operator_mode_lp_mix_end_to_end():
     jp, tp = _problems("qpg60")
     rj = JSolver(jp, verbose=False, fused=False, kkt_mode="free").optimize()
-    dense = TSolver(tp, device="cpu", verbose=False).optimize()
+    dense = TSolver(tp, device="cpu", verbose=False, fused=False).optimize()
     rt = TSolver(tp, device="cpu", verbose=False, kkt_mode="free").optimize()
     assert rt.status == rj.status == dense.status == "PRIMAL_DUAL_OPTIMAL"
     assert rt.d_obj == pytest.approx(rj.d_obj, rel=1e-6)
@@ -408,7 +408,7 @@ def test_operator_mode_flat_layout_runs_on_jacobi():
     """A multi-block (flat) problem has no row-chunked build: operator mode
     never builds the f32 preconditioner and still reaches the optimum."""
     jp, tp = _problems("control6")
-    dense = TSolver(tp, device="cpu", verbose=False).optimize()
+    dense = TSolver(tp, device="cpu", verbose=False, fused=False).optimize()
     rt = TSolver(tp, device="cpu", verbose=False, kkt_mode="free").optimize()
     assert rt.status == dense.status == "PRIMAL_DUAL_OPTIMAL"
     assert rt.d_obj == pytest.approx(dense.d_obj, rel=1e-6)
@@ -571,7 +571,7 @@ def test_dense_solve_above_the_cap_checks_and_matches_jax():
     with its dense M and checks matrix-free, in both packages."""
     jp, tp = _problems("gpp30")
     rj = JSolver(jp, verbose=False, fused=False, op_materialize_cap=10).optimize()
-    ts = TSolver(tp, device="cpu", verbose=False, op_materialize_cap=10)
+    ts = TSolver(tp, device="cpu", verbose=False, fused=False, op_materialize_cap=10)
     rt = ts.optimize()
     assert not ts.ipm.kkt_free and "opcg_iters" not in rt.stats
     assert rt.status == rj.status == "PRIMAL_DUAL_OPTIMAL"
@@ -589,7 +589,7 @@ def test_operator_mode_on_gpp_walks_the_whole_ladder_as_jax_does():
     packages do, and still end at the dense optimum."""
     jp, tp = _problems("gpp30")
     rj = JSolver(jp, verbose=False, fused=False, kkt_mode="free").optimize()
-    dense = TSolver(tp, device="cpu", verbose=False).optimize()
+    dense = TSolver(tp, device="cpu", verbose=False, fused=False).optimize()
     rt = TSolver(tp, device="cpu", verbose=False, kkt_mode="free").optimize()
     assert rt.status == rj.status == dense.status == "PRIMAL_DUAL_OPTIMAL"
     assert rt.d_obj == pytest.approx(rj.d_obj, rel=1e-6)

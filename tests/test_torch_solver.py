@@ -1,6 +1,6 @@
-"""The port's host-loop solver end to end against the JAX package's
-(fused=False) on every synthetic family, its CLI, its device policy and
-what it does not port."""
+"""The port's host-loop solver (fused=False on both sides) end to end
+against the JAX package's on every synthetic family, its CLI, its device
+policy and what it does not port."""
 
 import json
 import os
@@ -43,7 +43,7 @@ def jax_runs():
 def test_gpp40_matches_jax(jax_runs, hp):
     _, rj = jax_runs[hp]
     rt = TSolver(TProblem.from_sdpa(tsyn.gpp_sdpa(n=40, seed=0)), device="cpu",
-                 verbose=False, kkt_hp=hp).optimize()
+                 verbose=False, fused=False, kkt_hp=hp).optimize()
     assert rt.status == rj.status == "PRIMAL_DUAL_OPTIMAL"
     assert abs(rt.n_iters - rj.n_iters) <= 1
     assert rt.d_obj == pytest.approx(rj.d_obj, rel=1e-7)
@@ -91,7 +91,7 @@ def test_mixed_sdp_lp_with_dual_start_matches_jax():
     js.set_dual_start(y0)
     rj = js.optimize()
     ts = TSolver(TProblem.from_sdpa(tsyn.random_sdpa(**_mixed())), device="cpu",
-                 verbose=False)
+                 verbose=False, fused=False)
     ts.set_dual_start(y0)
     rt = ts.optimize()
     assert rt.status == rj.status == "PRIMAL_DUAL_OPTIMAL"
@@ -185,7 +185,7 @@ def family_runs(request):
                  **over)
     rj = js.optimize()
     ts = TSolver(TProblem.from_sdpa(getattr(tsyn, gen)(**kw)), device="cpu", verbose=False,
-                 **over)
+                 fused=False, **over)
     rt = ts.optimize()
     return dict(name=request.param, js=js, rj=rj, ts=ts, rt=rt, bucket=bucket, psdp=psdp,
                 cg="kkt_solver" in over)
@@ -240,8 +240,8 @@ def test_two_solves_repeat_bit_for_bit():
     + PSDP + AdaptiveCG here; the card is held to the same by its smoke
     run)."""
     prob = TProblem.from_sdpa(tsyn.theta_sdpa(n=30, n_edges=250, seed=0))
-    a = TSolver(prob, device="cpu", verbose=False, kkt_solver="cg").optimize()
-    b = TSolver(prob, device="cpu", verbose=False, kkt_solver="cg").optimize()
+    a = TSolver(prob, device="cpu", verbose=False, fused=False, kkt_solver="cg").optimize()
+    b = TSolver(prob, device="cpu", verbose=False, fused=False, kkt_solver="cg").optimize()
     assert a.d_obj == b.d_obj and a.p_obj == b.p_obj and a.n_iters == b.n_iters
     np.testing.assert_array_equal(a.y, b.y)
 
@@ -252,7 +252,8 @@ def test_psdp_failure_switches_it_off_and_the_dual_method_finishes():
     kw = dict(m=30, block_dims=[8], seed=4)
     js = JSolver(JProblem.from_sdpa(jsyn.random_sdpa(**kw)), verbose=False, fused=False)
     rj = js.optimize()
-    ts = TSolver(TProblem.from_sdpa(tsyn.random_sdpa(**kw)), device="cpu", verbose=False)
+    ts = TSolver(TProblem.from_sdpa(tsyn.random_sdpa(**kw)), device="cpu", verbose=False,
+                 fused=False)
     rt = ts.optimize()
     assert ts.ipm.psdp is None and js.ipm.psdp is None
     assert rt.stats["psdp_runs"] == 1 and rt.stats["psdp_iters"] > 0
@@ -275,8 +276,8 @@ def test_cone_system_layout_argument():
 
 
 @pytest.mark.parametrize("override,what", [
-    (dict(fused="phase"), "fused"),
-    (dict(fused=True), "fused"),
+    (dict(dtype="float32"), "dtype"),
+    (dict(fused="phase", cone_fp="dd"), "ddchol"),
     (dict(cone_fp="dd"), "ddchol"),
     (dict(kkt_fp="dd"), "ddchol"),
 ])
@@ -302,8 +303,8 @@ def test_small_solve_on_card_matches_host():
 
     prob = TProblem.from_sdpa(tsyn.gpp_sdpa(n=40, seed=0))
     before = hpmm.KERNEL_LAUNCHES
-    rg = TSolver(prob, device="cuda", verbose=False, kkt_hp="on").optimize()
-    rc = TSolver(prob, device="cpu", verbose=False, kkt_hp="on").optimize()
+    rg = TSolver(prob, device="cuda", verbose=False, fused=False, kkt_hp="on").optimize()
+    rc = TSolver(prob, device="cpu", verbose=False, fused=False, kkt_hp="on").optimize()
     assert hpmm.KERNEL_LAUNCHES > before
     assert rg.status == rc.status == "PRIMAL_DUAL_OPTIMAL"
     assert abs(rg.n_iters - rc.n_iters) <= 1
