@@ -58,6 +58,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              under kkt_mode="free" against the objectives of their dense
              solves; then time the two ways of applying the f32
              preconditioner at m = 25,001.  One JSON line per solve.
+  8. api     the rest of the single-instance surface: a sparse LP of 1800
+             rows and 4500 columns (utils/instances.py lp1800) written as MPS
+             and solved by solve_mps_file, with default parameters and with
+             the primal phase allowed from the first qualifying iteration,
+             held to the JAX package's CPU objective; the ranged MPS through
+             `python -m hdsdp_tpu_torch ... --json`; maxG51 solved with
+             checkpoint_to and resumed in a new solver; kkt_cross_validate on
+             the card; the native SDPA reader against the Python parser on
+             theta-m25001's 270,000-entry file, both timed; theta6 and gpp500
+             solved again in a subprocess under OMP_NUM_THREADS=2, which must
+             repeat the bits of the fused phase's solves (the presolve does not
+             depend on the host's thread count).  One JSON line per part.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}.
@@ -129,6 +141,41 @@ FUSED_PSDP = ("theta6",)  # the fused phase B must hand off to PSDP
 OPERATOR_DIMACS_BOUND = 1e-4
 OPERATOR_JAX_REF = (99, -99.52193140329659)
 OPERATOR_JAX_RECORD_D_OBJ = -99.52377458005179
+
+# The api phase's LP (utils/instances.py "lp1800": 1800 x 4500, 1 % dense,
+# seed 0) solved by the JAX package's solve_mps_file on the CPU,
+# `JAX_PLATFORMS=cpu python tests/jax_reference.py --lp lp1800` (8 cores,
+# 11-13 s each): primal_switch_ratio -> (iterations, phase that ended the
+# solve, p_obj, d_obj).  Both settings end in the primal-dual phase: the
+# switch-over conditions never hold on this LP.  Both packages stop on
+# their stall rule at iteration 20 (the dual residual grows as mu -> 0) and
+# return the best iterate, at a relative gap |p - d| / (|p| + |d| + 1) of
+# 8.6e-08, the solver's own measure, which is what the phase holds to 1e-7.
+LP_JAX_REFS = {
+    0.0: (20, "pd", 1475.910834578135, 1475.9105814179402),
+    1e30: (20, "pd", 1475.910834578135, 1475.9105814179402),
+}
+RANGED_MPS = """NAME          RANGED
+ROWS
+ N  COST
+ L  R1
+ G  R2
+ E  R3
+COLUMNS
+    X1        COST      -1.0   R1   1.0
+    X1        R2         1.0   R3   1.0
+    X2        COST      -2.0   R1   1.0
+    X2        R2        -1.0   R3   2.0
+RHS
+    RHS       R1         4.0   R2  -1.0
+    RHS       R3         3.0
+RANGES
+    RNG       R1         2.0   R2   3.0
+    RNG       R3         4.0
+ENDATA
+"""
+RANGED_OBJ = -6.5  # 3 <= x1 + 2 x2 <= 7, hand-computed optimum
+THREADS_REPEAT = ("theta6", "gpp500")  # solved again under OMP_NUM_THREADS=2
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
 PEAK_BYTES_S = 3.35e12    # HBM3
@@ -561,9 +608,10 @@ def _fused_phase(torch, solve_sdpa_file, instances, hpmm, profiled_solve, tmp):
     """The six SDPLIB-size instances through the default path, which
     picks the fused phase bodies ("iter"); raises unless each meets its
     holds.  Returns gpp500's (K1, K1s) launches, counted from 0 around
-    that solve."""
+    that solve, and each instance's ``_bits``."""
     host_refs = dict(FAMILY_REFS, gpp500=(REF_ITERS, REF_D_OBJ))
     gpp500_launches = None
+    bits = {}  # name -> _bits of the first default-path solve
     for name, (ref_iters, ref_d_obj) in FUSED_REFS.items():
         path = os.path.join(tmp, name + ".dat-s")
         overrides = instances.write_instance(name, path)
@@ -583,6 +631,7 @@ def _fused_phase(torch, solve_sdpa_file, instances, hpmm, profiled_solve, tmp):
             launches = (hpmm.KERNEL_LAUNCHES, hpmm.SLICE_LAUNCHES)
             runs.append(r)
             peak = torch.cuda.max_memory_allocated()
+        bits[name] = _bits(runs[0])
         if name == "gpp500":
             gpp500_launches = launches
         _, _, fc = profiled_solve(solve)
@@ -647,7 +696,7 @@ def _fused_phase(torch, solve_sdpa_file, instances, hpmm, profiled_solve, tmp):
             and rg.status == rc.status == "PRIMAL_DUAL_OPTIMAL"
             and abs(rg.n_iters - rc.n_iters) <= 1 and rel_small <= 1e-7 and same):
         raise AssertionError("gpp40 on the fused path: card/host or phase/iter disagree")
-    return gpp500_launches
+    return gpp500_launches, bits
 
 
 def _operator_phase(torch, solve_sdpa_file, instances, hpmm, dense_d_obj, tmp):
@@ -785,6 +834,148 @@ def _operator_phase(torch, solve_sdpa_file, instances, hpmm, dense_d_obj, tmp):
     _require(diff < 1e-3, "the two preconditioner applications disagree")
 
 
+def _bits(r) -> dict:
+    """What two solves of one instance must share bit for bit."""
+    import hashlib
+
+    import numpy as np
+
+    y = np.ascontiguousarray(r.y)
+    return {"status": r.status, "iterations": r.n_iters, "d_obj": repr(r.d_obj),
+            "p_obj": repr(r.p_obj), "y_sha256": hashlib.sha256(y.tobytes()).hexdigest()}
+
+
+def _solve_once(name: str) -> int:
+    """Solve a named instance through the default path on the card and
+    print its _bits as one JSON line (the subprocess of the thread check)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from hdsdp_tpu_torch.solver.solver import solve_sdpa_file
+    from hdsdp_tpu_torch.utils import instances
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, name + ".dat-s")
+        overrides = instances.write_instance(name, path)
+        r = solve_sdpa_file(path, device="cuda", verbose=False, **overrides)
+    print(json.dumps(_bits(r)))
+    return 0
+
+
+def _api_phase(torch, solve_sdpa_file, instances, hpmm, fused_bits, tmp):
+    """The LP solver, the CLI's .mps path, checkpoint and resume, the KKT
+    cross-check, the native reader and the thread-count repair on the card;
+    raises unless every hold is met."""
+    import numpy as np
+
+    from hdsdp_tpu_torch.io.sdpa import read_sdpa
+    from hdsdp_tpu_torch.models.problem import SDPProblem
+    from hdsdp_tpu_torch.models.synthetic import random_sdpa
+    from hdsdp_tpu_torch.solver.lpsolve import solve_mps_file
+    from hdsdp_tpu_torch.solver.solver import HDSDPSolver
+    from hdsdp_tpu_torch.utils.kktcheck import kkt_cross_validate
+
+    # -- the LP through an MPS file, twice ---------------------------------
+    path = os.path.join(tmp, "lp1800.mps")
+    instances.write_lp_instance("lp1800", path)
+    for ratio in (None, 0.0):
+        over = {} if ratio is None else {"primal_switch_ratio": ratio}
+        ref_iters, ref_method, ref_p, ref_d = LP_JAX_REFS[0.0 if ratio == 0.0 else 1e30]
+        hpmm.KERNEL_LAUNCHES = hpmm.SLICE_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = solve_mps_file(path, verbose=False, **over)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gap = abs(r.p_obj - r.d_obj) / (abs(r.p_obj) + abs(r.d_obj) + 1.0)
+        rel_p, rel_d = abs(r.p_obj - ref_p) / abs(ref_p), abs(r.d_obj - ref_d) / abs(ref_d)
+        print(json.dumps({
+            "api": "lp1800", "primal_switch_ratio": "default (50.0)" if ratio is None else ratio,
+            "status": r.status, "iterations": r.n_iters, "jax_iterations": ref_iters,
+            "last_method": r.last_method, "jax_last_method": ref_method,
+            "p_obj": r.p_obj, "d_obj": r.d_obj, "rel_gap": gap,
+            "rel_p_obj_to_jax": rel_p, "rel_d_obj_to_jax": rel_d, "wall_s": wall,
+            "factor_solve_ratio": r.factor_solve_ratio,
+            "own_kernel_launches": hpmm.KERNEL_LAUNCHES + hpmm.SLICE_LAUNCHES,
+        }), flush=True)
+        if not (r.status == "PRIMAL_DUAL_OPTIMAL" and gap <= 1e-7 and rel_p <= 1e-6
+                and rel_d <= 1e-6):
+            raise AssertionError(f"lp1800 (primal_switch_ratio {ratio}): {r.status}, gap "
+                                 f"{gap:.3e}, to JAX {rel_p:.3e} / {rel_d:.3e}")
+
+    # -- the CLI's .mps path on the card -----------------------------------
+    mps = os.path.join(tmp, "ranged.mps")
+    with open(mps, "w") as f:
+        f.write(RANGED_MPS)
+    out = subprocess.run([sys.executable, "-m", "hdsdp_tpu_torch", mps, "--json", "--quiet"],
+                         capture_output=True, text=True, timeout=300)
+    summary = json.loads(out.stdout.strip().splitlines()[-1]) if out.returncode == 0 else {}
+    print(f"[api] python -m hdsdp_tpu_torch ranged.mps --json: rc {out.returncode} "
+          f"{summary}", flush=True)
+    if not (out.returncode == 0 and summary.get("device") == "cuda"
+            and abs(summary["pObj"] - RANGED_OBJ) <= 1e-6 * abs(RANGED_OBJ)):
+        raise AssertionError(f"the CLI's .mps path: rc {out.returncode}\n{out.stderr[-3000:]}")
+
+    # -- checkpoint and resume on maxG51 -----------------------------------
+    sdpa = os.path.join(tmp, "maxG51.dat-s")
+    overrides = instances.write_instance("maxG51", sdpa)
+    prob = SDPProblem.from_sdpa(read_sdpa(sdpa))
+    ck = os.path.join(tmp, "maxG51.npz")
+    r1 = HDSDPSolver(prob, verbose=False, **overrides).optimize(checkpoint_to=ck)
+    r2 = HDSDPSolver(prob, verbose=False, **overrides).optimize(resume_from=ck)
+    rel = abs(r2.d_obj - r1.d_obj) / abs(r1.d_obj)
+    print(f"[api] maxG51 checkpoint_to then resume_from: {r1.status} / {r2.status}, "
+          f"iterations {r1.n_iters} / {r2.n_iters}, d_obj {r1.d_obj!r} / {r2.d_obj!r} "
+          f"(relative {rel:.3e}), driver {r1.stats['fused']} / {r2.stats['fused']}", flush=True)
+    if not (r1.status == r2.status == "PRIMAL_DUAL_OPTIMAL" and rel <= 1e-8
+            and r2.n_iters <= r1.n_iters + 2):
+        raise AssertionError("maxG51: the resumed solve does not meet its holds")
+
+    # -- the KKT cross-check on the card -----------------------------------
+    kprob = SDPProblem.from_sdpa(random_sdpa(m=200, block_dims=[60, 40], n_lp=20, seed=0))
+    errs = kkt_cross_validate(kprob)
+    print(f"[api] kkt_cross_validate(random_sdpa(m=200, [60, 40], n_lp=20)) on the card: "
+          f"{errs}", flush=True)
+    _require(max(errs.values()) < 1e-8, "the KKT cross-check exceeds 1e-8")
+
+    # -- the native reader on theta-m25001's file --------------------------
+    big = os.path.join(tmp, "theta-m25001.dat-s")
+    instances.write_instance("theta-m25001", big)
+    read_sdpa(big)  # the library is built by now; one warm-up read
+    t0 = time.perf_counter()
+    native = read_sdpa(big)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(big) as f:
+        python = read_sdpa(f)
+    t_python = time.perf_counter() - t0
+    same = (native.m == python.m and native.block_dims == python.block_dims
+            and native.nnz == python.nnz and np.array_equal(native.b, python.b)
+            and all(np.array_equal(getattr(x, k), getattr(y, k)) and
+                    getattr(x, k).dtype == getattr(y, k).dtype
+                    for x, y in zip(native.blocks, python.blocks)
+                    for k in ("con", "row", "col", "val")))
+    print(f"[api] theta-m25001's file ({os.path.getsize(big)} bytes, {native.nnz} entries): "
+          f"native reader {t_native:.4f} s, Python parser {t_python:.4f} s, saved "
+          f"{t_python - t_native:.4f} s; arrays bitwise equal: {same}", flush=True)
+    _require(same, "the native reader and the Python parser disagree")
+
+    # -- the thread-count repair: theta6 and gpp500 under 2 threads --------
+    env = dict(os.environ, OMP_NUM_THREADS="2", OPENBLAS_NUM_THREADS="2",
+               MKL_NUM_THREADS="2")
+    for name in THREADS_REPEAT:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--solve-once", name],
+                             capture_output=True, text=True, timeout=600, env=env)
+        got = json.loads(out.stdout.strip().splitlines()[-1]) if out.returncode == 0 else {}
+        print(f"[api] {name} under OMP_NUM_THREADS=2: {got}; the fused phase's solve: "
+              f"{fused_bits[name]}", flush=True)
+        if got != fused_bits[name]:
+            raise AssertionError(f"{name} under 2 threads differs from the full-thread solve "
+                                 f"(rc {out.returncode})\n{out.stderr[-3000:]}")
+
+
 def main() -> int:
     import torch
 
@@ -868,12 +1059,17 @@ def main() -> int:
 
     # -- the default path: the fused phase bodies -------------------------
     with tempfile.TemporaryDirectory() as tmp:
-        fused_launches = _fused_phase(torch, solve_sdpa_file, instances, hpmm,
-                                      profiled_solve, tmp)
+        fused_launches, fused_bits = _fused_phase(torch, solve_sdpa_file, instances, hpmm,
+                                                  profiled_solve, tmp)
 
     # -- operator mode: m = 25,001 by default, two instances forced --------
     with tempfile.TemporaryDirectory() as tmp:
         _operator_phase(torch, solve_sdpa_file, instances, hpmm, dense_d_obj, tmp)
+
+    # -- the LP solver, the CLI, checkpoints, the KKT check, the native
+    # reader and the thread-count repair ----------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        _api_phase(torch, solve_sdpa_file, instances, hpmm, fused_bits, tmp)
 
     # K1 at the pair shape; K1s as the mean of the four operand launches of
     # the main path's two products (FU: A and a row-major B; pair: A and B
@@ -923,4 +1119,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--solve-once"]:
+        sys.exit(_solve_once(sys.argv[2]))
     sys.exit(main())

@@ -15,7 +15,8 @@ Semantics follow the reference reader ``HReadSDPA``
     (ref hdsdp_file_io.c:234-250, HDSDP solves min <C,X>),
   * entries with |val| < 1e-12 are dropped (ref hdsdp_file_io.c:224-230).
 
-This is the pure-Python parser; a native tokenizer is a later addition.
+A path is read by the C++ tokenizer of ``hdsdp_tpu_torch/native``, a buffer
+by the pure-Python parser here; both give the same arrays.
 """
 
 from __future__ import annotations
@@ -104,15 +105,20 @@ def write_sdpa(data: SDPAData, path_or_buf) -> None:
 
 
 def read_sdpa(path_or_buf) -> SDPAData:
-    """Read an SDPA sparse file into raw per-block COO arrays."""
+    """Read an SDPA sparse file into raw per-block COO arrays.
 
-    if hasattr(path_or_buf, "read"):
-        text = path_or_buf.read()
-    else:
-        with open(path_or_buf, "r") as f:
-            text = f.read()
+    A path is read by the native tokenizer (``native/sdpa_parser.cpp``,
+    built with g++ on first use); a buffer (anything with ``read``) by the
+    Python parser below.  Both give the same arrays, and both raise on a
+    malformed file: neither falls back to the other."""
 
-    lines = text.splitlines()
+    if not hasattr(path_or_buf, "read"):
+        from hdsdp_tpu_torch.native import sdpa_native
+
+        m, dims, b, con, blk, row, col, val = sdpa_native.parse(str(path_or_buf))
+        return _assemble(m, [int(d) for d in dims], b, con, blk, row, col, val)
+
+    lines = path_or_buf.read().splitlines()
     k = 0
 
     # Comments
@@ -129,21 +135,6 @@ def read_sdpa(path_or_buf) -> SDPAData:
         dims.extend(_tokenize_header_ints(lines[k]))
         k += 1
     dims = dims[:nblocks]
-
-    lp_cols = 0
-    sdp_dims = []
-    for idx, d in enumerate(dims):
-        if d < 0:
-            # Only one diagonal block, at the end (ref hdsdp_file_io.c:110-116)
-            if idx != nblocks - 1:
-                raise ValueError("LP (negative) block must be the last block")
-            lp_cols = -d
-        elif d == 0:
-            raise ValueError("zero block dimension")
-        else:
-            sdp_dims.append(d)
-    if lp_cols and len(sdp_dims) != nblocks - 1:
-        raise ValueError("only one LP block supported")
 
     # RHS: m floats possibly spanning lines, commas/braces tolerated
     rhs: List[float] = []
@@ -170,6 +161,27 @@ def read_sdpa(path_or_buf) -> SDPAData:
     row = arr[:, 2].astype(np.int64) - 1
     col = arr[:, 3].astype(np.int64) - 1
     val = arr[:, 4].astype(np.float64)
+    return _assemble(m, dims, b, con, blk, row, col, val)
+
+
+def _assemble(m, dims, b, con, blk, row, col, val) -> SDPAData:
+    """``SDPAData`` from the parsed header and entries (0-based blk, row and
+    col; objective not yet negated), shared by both parsers."""
+    nblocks = len(dims)
+    lp_cols = 0
+    sdp_dims = []
+    for idx, d in enumerate(dims):
+        if d < 0:
+            # Only one diagonal block, at the end (ref hdsdp_file_io.c:110-116)
+            if idx != nblocks - 1:
+                raise ValueError("LP (negative) block must be the last block")
+            lp_cols = -d
+        elif d == 0:
+            raise ValueError("zero block dimension")
+        else:
+            sdp_dims.append(d)
+    if lp_cols and len(sdp_dims) != nblocks - 1:
+        raise ValueError("only one LP block supported")
 
     keep = np.abs(val) >= TINY_ENTRY
     con, blk, row, col, val = con[keep], blk[keep], row[keep], col[keep], val[keep]

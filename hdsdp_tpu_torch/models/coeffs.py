@@ -28,6 +28,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from hdsdp_tpu_torch.utils.blas_threads import single_threaded
+
 # dense classification threshold (ref hdsdp_sdpdata.c:2332)
 DENSE_NNZ_RATIO = 0.3
 # rank-1 factor density threshold spr1 vs dsr1 (ref hdsdp_sdpdata.c:2397-2399)
@@ -162,9 +164,12 @@ def analyze_block(
     con, row, col, val = con[order], row[order], col[order], val[order]
     bounds = np.searchsorted(con, np.arange(m + 2))
     infos = []
-    for i in range(m + 1):
-        lo, hi = bounds[i], bounds[i + 1]
-        infos.append(
-            analyze_coeff(n, row[lo:hi], col[lo:hi], val[lo:hi], rank_cap, max_eig_support)
-        )
+    # one BLAS thread: the restricted eigendecompositions (blocked LAPACK)
+    # then give the same bits at any thread count of the host
+    with single_threaded():
+        for i in range(m + 1):
+            lo, hi = bounds[i], bounds[i + 1]
+            infos.append(
+                analyze_coeff(n, row[lo:hi], col[lo:hi], val[lo:hi], rank_cap, max_eig_support)
+            )
     return infos

@@ -1512,13 +1512,23 @@ class DualIPM:
         return self.status
 
 
-def load_state(ipm: DualIPM, d: dict) -> None:
-    """Set the IPM iterate from a dict with the fields the JAX package's
-    ``utils.checkpoint.save_checkpoint`` writes (y, tau, rd, mu, perturb,
-    n_iter, status and both makers), e.g. ``load_checkpoint``'s result.
-    Both packages can then be driven from identical iterates."""
+def load_state(ipm: DualIPM, d: dict, warm_start: bool = False) -> None:
+    """Set the IPM iterate from a dict with the fields
+    ``utils.checkpoint.save_checkpoint`` writes, in either package (y, tau,
+    rd, mu, perturb, n_iter, status and both makers), e.g.
+    ``load_checkpoint``'s result.  Both packages can then be driven from
+    identical iterates.
+
+    ``warm_start=True`` is what resuming a checkpoint does (the JAX
+    package's ``apply_checkpoint``): y becomes the dual start ``y0`` of the
+    next solve and only the makers are set besides; the solve's own start
+    sets the rest."""
     if int(d["m"]) != ipm.m:
         raise ValueError(f"state is for m={int(d['m'])}, problem has m={ipm.m}")
+    if warm_start:
+        ipm.y0 = ipm._vec(d["y"])
+        _load_makers(ipm, d)
+        return
     ipm.y = ipm._vec(d["y"])
     ipm.tau = float(d["tau"])
     ipm.Rd = float(d["rd"])
@@ -1528,6 +1538,10 @@ def load_state(ipm: DualIPM, d: dict) -> None:
         ipm.n_iter = int(d["n_iter"])
     if "status" in d:
         ipm.status = str(d["status"])
+    _load_makers(ipm, d)
+
+
+def _load_makers(ipm: DualIPM, d: dict) -> None:
     for name in ("acc", "inacc"):
         y = np.asarray(d[f"maker_{name}_y"])
         if y.size:

@@ -13,6 +13,11 @@ from hdsdp_tpu_torch.io.sdpa import read_sdpa
 from hdsdp_tpu_torch.models.problem import SDPProblem
 from hdsdp_tpu_torch.solver import algo, dimacs
 from hdsdp_tpu_torch.solver.params import Params
+from hdsdp_tpu_torch.utils.checkpoint import (
+    apply_checkpoint,
+    load_checkpoint,
+    save_checkpoint,
+)
 from hdsdp_tpu_torch.utils.device import resolve_device
 
 
@@ -57,11 +62,21 @@ class HDSDPSolver:
         """Dual warm start (ref HDSDPSetDualStart, interface/hdsdp.c:617)."""
         self._dual_start = np.asarray(y, dtype=np.float64)
 
-    def optimize(self, d_only: bool = False) -> Result:
+    def optimize(
+        self,
+        d_only: bool = False,
+        resume_from: Optional[str] = None,
+        checkpoint_to: Optional[str] = None,
+    ) -> Result:
+        """Solve; ``resume_from`` seeds the solve with a checkpoint (the
+        dual start and both makers) written by either package,
+        ``checkpoint_to`` writes one after the IPM ends."""
         t0 = time.time()
         ipm = algo.DualIPM(self.prob, self.params, device=self.device)
         if self._dual_start is not None:
             ipm.y0 = ipm._vec(self._dual_start)
+        if resume_from is not None:
+            apply_checkpoint(ipm, load_checkpoint(resume_from))
         self.ipm = ipm
         if self.params.verbose:
             print(f"\nhdsdp_tpu_torch: semidefinite programming solver on {self.device}\n")
@@ -69,6 +84,9 @@ class HDSDPSolver:
                 print(ipm.params.model_notes)
 
         ipm.solve(d_only=d_only)
+
+        if checkpoint_to is not None:
+            save_checkpoint(checkpoint_to, ipm)
 
         errs = np.ones(6)
         if ipm.status not in (

@@ -8,6 +8,9 @@ instance above the operator-mode threshold.
 
 from __future__ import annotations
 
+import numpy as np
+
+from hdsdp_tpu_torch.io.mps import write_mps
 from hdsdp_tpu_torch.io.sdpa import write_sdpa
 from hdsdp_tpu_torch.models import synthetic
 
@@ -44,3 +47,29 @@ def write_instance(name: str, path: str) -> dict:
     gen, kw, overrides = INSTANCES[name]
     write_sdpa(getattr(synthetic, gen)(**kw), path)
     return dict(overrides)
+
+
+# LP instances for solve_mps_file: name -> (nrow, ncol, density, seed).
+# lp1800: the row count of 10teams as the JAX package reads it (nrow =
+# 1800, tests/test_lp.py) at 4500 columns and 1 % density
+LP_INSTANCES = {
+    "lp1800": (1800, 4500, 0.01, 0),
+}
+
+
+def random_lp(nrow: int, ncol: int, density: float, seed: int):
+    """(A, b, c) of a sparse, strictly primal and dual feasible LP in
+    standard form, in the pattern of the JAX package's random LP test:
+    b = A x0 with x0 > 0, c = A' y0 + s0 with s0 > 0."""
+    rng = np.random.default_rng(seed)
+    A = np.where(rng.random((nrow, ncol)) < density, rng.normal(size=(nrow, ncol)), 0.0)
+    x0 = rng.random(ncol) + 0.5
+    b = A @ x0
+    c = A.T @ rng.normal(size=nrow) + rng.random(ncol) + 0.5
+    return A, b, c
+
+
+def write_lp_instance(name: str, path: str) -> None:
+    """Write the named LP instance to ``path`` in MPS format."""
+    A, b, c = random_lp(*LP_INSTANCES[name])
+    write_mps(path, A, b, c, name=name)

@@ -4,6 +4,7 @@ scripts: where the reference objectives and iteration counts in
 
     JAX_PLATFORMS=cpu python tests/jax_reference.py theta-m25001
     JAX_PLATFORMS=cpu python tests/jax_reference.py maxG51 --fused auto
+    JAX_PLATFORMS=cpu python tests/jax_reference.py --lp lp1800
 
 Solves the instance's generator call (``hdsdp_tpu_torch/utils/instances.py``)
 with ``hdsdp_tpu``'s ``HDSDPSolver(prob, fused=...)`` and the instance's
@@ -13,20 +14,37 @@ overrides, on the CPU, and prints one JSON line.  ``--fused`` defaults to
 programs below its memory budget (``FUSED_REFS``).  The largest instance
 (theta-m25001, operator mode) holds about 19 GB and takes a quarter of an
 hour on 8 cores.
+
+``--lp NAME`` solves a named LP instance instead
+(``LP_INSTANCES`` of the same module, written to an MPS file and read
+back) with the JAX package's ``read_mps`` and ``LPSolver``, as its
+``solve_mps_file`` runs them, once with the primal phase allowed from the
+first iteration that qualifies (``primal_switch_ratio=0.0``) and once with
+it forbidden (``1e30``), and prints one JSON line each (``LP_JAX_REFS`` in
+``chip_smoke.py``).
 """
 
 import argparse
 import json
 import os
 import sys
+import tempfile
 import time
+
+import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from hdsdp_tpu.io.mps import read_mps  # noqa: E402
 from hdsdp_tpu.models import synthetic  # noqa: E402
 from hdsdp_tpu.models.problem import SDPProblem  # noqa: E402
+from hdsdp_tpu.solver.lpsolve import LPParams, LPSolver  # noqa: E402
 from hdsdp_tpu.solver.solver import HDSDPSolver  # noqa: E402
-from hdsdp_tpu_torch.utils.instances import INSTANCES  # noqa: E402
+from hdsdp_tpu_torch.utils.instances import (  # noqa: E402
+    INSTANCES,
+    LP_INSTANCES,
+    write_lp_instance,
+)
 
 FUSED = {"false": False, "auto": "auto", "phase": "phase", "iter": "iter"}
 
@@ -48,9 +66,35 @@ def main(name: str, fused) -> int:
     return 0
 
 
+def main_lp(name: str) -> int:
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, name + ".mps")
+        write_lp_instance(name, path)
+        data = read_mps(path)
+    A = np.zeros((data.nrow, data.ncol))
+    for j in range(data.ncol):
+        lo, hi = data.col_ptr[j], data.col_ptr[j + 1]
+        A[data.row_idx[lo:hi], j] += data.val[lo:hi]
+    for ratio in (0.0, 1e30):
+        t0 = time.time()
+        solver = LPSolver(A, data.b, data.c, LPParams(verbose=False, primal_switch_ratio=ratio))
+        r = solver.optimize()
+        print(json.dumps({
+            "lp_instance": name, "spec": LP_INSTANCES[name], "primal_switch_ratio": ratio,
+            "status": r.status, "iterations": r.n_iters, "last_method": solver.last_method,
+            "p_obj": data.objsense * r.p_obj + data.obj_shift,
+            "d_obj": data.objsense * r.d_obj + data.obj_shift,
+            "cpu_wall_s": time.time() - t0,
+        }))
+    return 0
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("name", choices=sorted(INSTANCES))
+    ap.add_argument("name", nargs="?", choices=sorted(INSTANCES))
     ap.add_argument("--fused", choices=sorted(FUSED), default="false")
+    ap.add_argument("--lp", choices=sorted(LP_INSTANCES))
     args = ap.parse_args()
-    sys.exit(main(args.name, FUSED[args.fused]))
+    if (args.name is None) == (args.lp is None):
+        ap.error("give one instance NAME or one --lp NAME")
+    sys.exit(main_lp(args.lp) if args.lp else main(args.name, FUSED[args.fused]))
