@@ -71,6 +71,26 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              repeat the bits of the fused phase's solves (the presolve does not
              depend on the host's thread count).  One JSON line per part.
 
+  9. batch   solve_batch: three fleets of same-shape instances through one
+             set of fused phase bodies: 16 x maxcut_sdpa(n=100) (mcp100
+             class), 8 x maxcut_sdpa(n=1000) (maxG51 class) and 4 x
+             gpp_sdpa(n=500) with kkt_hp="on" (gpp500 class, K1 and K1s with a
+             fleet axis).  The two maxcut fleets must finish every member in
+             the fleet, each held to its own solo (default, fused) solve of
+             this run: status, d_obj within 1e-7, DIMACS max <= 1e-6.  The gpp
+             fleet's members leave in phase B on the small-step rule, as in
+             the JAX package's own fleet on the CPU, and are re-solved solo
+             (which must repeat this run's solo solves bit for bit): that
+             fleet holds K1 and K1s on the fleet's path, launched once per
+             fleet product (K1s twice), not once per instance, and not the
+             fleet's end result.  One JSON line per fleet:
+             iterations beside the solo ones, the fleet's wall beside the sum
+             of the solo walls, device kernels and host reads per fleet
+             iteration beside one solo's, peak memory.  A fleet of mixed
+             shapes must raise.  (The kernel phase also holds the fleet forms
+             of K1 and K1s, at the gpp fleet's shapes, bitwise against their N
+             single launches and their plain versions, and times them.)
+
 The last lines are the kernel table as JSON, the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}.
 """
@@ -176,6 +196,15 @@ ENDATA
 """
 RANGED_OBJ = -6.5  # 3 <= x1 + 2 x2 <= 7, hand-computed optimum
 THREADS_REPEAT = ("theta6", "gpp500")  # solved again under OMP_NUM_THREADS=2
+
+# The batch phase's fleets: (name, generator in models/synthetic.py, its
+# arguments, fleet size, overrides); instance s is generated with seed=s.
+BATCH_FLEETS = (
+    ("mcp100x16", "maxcut_sdpa", {"n": 100}, 16, {}),
+    ("maxG51x8", "maxcut_sdpa", {"n": 1000}, 8, {}),
+    ("gpp500x4", "gpp_sdpa", {"n": 500}, 4, {"kkt_hp": "on"}),
+)
+BATCH_KERNEL_FLEET = 4  # the gpp fleet's size: K1/K1s are held at its shapes
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
 PEAK_BYTES_S = 3.35e12    # HBM3
@@ -546,6 +575,243 @@ def _kernel_phase(hpmm, hpmm_cases, dev):
              and sum("hpmm_pairs" in n for n in names) == 1,
              f"one hpmm ran {names} on the device, not its three kernels")
     return worst, worst_slice, times
+
+
+def _fleet_kernel_phase(hpmm, dev):
+    """K1 and K1s with a fleet axis, at the gpp fleet's shapes (4 instances
+    of the two products of gpp500's Schur assembly): one launch each,
+    bitwise equal to the N single launches and to the plain versions;
+    timed (CUDA events around a replayed graph) against their bound at the
+    fleet shape.  Returns (worst K1 diff, worst K1s diff, times)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(1)
+    n_f = BATCH_KERNEL_FLEET
+    fs = torch.as_tensor(rng.standard_normal((n_f, 501, 500)), device=dev)
+    u = torch.as_tensor(rng.standard_normal((n_f, 500, 500)), device=dev)
+    fu = torch.as_tensor(rng.standard_normal((n_f, 501, 500)), device=dev)
+    worst = worst_slice = 0.0
+    times = {}
+    for name, a, b in (("FU", fs, u), ("pair", fu, fs.transpose(1, 2))):
+        k0, s0 = hpmm.KERNEL_LAUNCHES, hpmm.SLICE_LAUNCHES
+        a_sl, ea = hpmm.hpmm_slice(a, 1, GMAX)
+        b_sl, eb = hpmm.hpmm_slice(b, 0, GMAX)
+        c = hpmm.hpmm_pairs(a_sl, b_sl, GMAX, ea, eb, out_f64=True)
+        ch, cl = hpmm.hpmm_pairs(a_sl, b_sl, GMAX)
+        launched = (hpmm.KERNEL_LAUNCHES - k0, hpmm.SLICE_LAUNCHES - s0)
+        _require(launched == (2, 2), f"the fleet's {name} product launched {launched}")
+        singles = [hpmm.slice_operands(a[i], b[i], GMAX) for i in range(n_f)]
+        for i, (sa, sb, sea, seb) in enumerate(singles):
+            _require(_same(a_sl[i], sa) and _same(b_sl[i], sb) and torch.equal(ea[i], sea)
+                     and torch.equal(eb[i], seb),
+                     f"fleet K1s differs from its single launches at {name}[{i}]")
+            _require(_same(c[i], hpmm.hpmm_pairs(sa, sb, GMAX, sea, seb, out_f64=True)),
+                     f"fleet K1 differs from its single launch at {name}[{i}]")
+        sl_r, e_r = hpmm.slice_ref(a, 1, GMAX)
+        slb_r, eb_r = hpmm.slice_ref(b, 0, GMAX)
+        ch_r, cl_r = hpmm.matmul_sliced_ref(a_sl, b_sl, GMAX)
+        c_r = hpmm.pairs_ref(a_sl, b_sl, GMAX, ea, eb, out_f64=True)
+        torch.cuda.synchronize()
+        _require(_same(a_sl, sl_r) and _same(b_sl, slb_r) and torch.equal(ea, e_r)
+                 and torch.equal(eb, eb_r), f"fleet K1s differs from slice_ref at {name}")
+        _require(_same(ch, ch_r) and _same(cl, cl_r) and _same(c, c_r),
+                 f"fleet K1 differs from its plain version at {name}")
+        worst = max(worst, _max_abs_diff(ch, ch_r), _max_abs_diff(cl, cl_r),
+                    _max_abs_diff(c, c_r))
+        worst_slice = max(worst_slice, _max_abs_diff(a_sl, sl_r), _max_abs_diff(b_sl, slb_r))
+        m, k = a.shape[1:]
+        n = b.shape[2]
+        kp = a_sl.shape[-1]
+        pb, pby = _pairs_bound_ms(m, n, kp, GMAX)
+        sab, sby = _slice_bound_ms(m, k, kp, GMAX)
+        sbb, _ = _slice_bound_ms(n, k, kp, GMAX)
+        t = {
+            "pairs_f64": _device_ms(lambda: hpmm.hpmm_pairs(a_sl, b_sl, GMAX, ea, eb,
+                                                            out_f64=True)),
+            "pairs_singles_f64": _device_ms(lambda: [
+                hpmm.hpmm_pairs(sa, sb, GMAX, sea, seb, out_f64=True)
+                for sa, sb, sea, seb in singles]),
+            "slice_a": _device_ms(lambda: hpmm.hpmm_slice(a, 1, GMAX)),
+            "slice_b": _device_ms(lambda: hpmm.hpmm_slice(b, 0, GMAX)),
+            "matmul": _device_ms(lambda: a @ b),
+            "pairs_plain": _time_ms(lambda: hpmm.matmul_sliced_ref(a_sl, b_sl, GMAX), reps=5),
+            "slice_a_plain": _time_ms(lambda: hpmm.slice_ref(a, 1, GMAX), reps=5),
+            "slice_b_plain": _time_ms(lambda: hpmm.slice_ref(b, 0, GMAX), reps=5),
+            # the whole fleet's work: N times one instance's
+            "pairs_bound": (n_f * pb, pby),
+            "slice_a_bound": (n_f * sab, sby),
+            "slice_b_bound": (n_f * sbb, sby),
+        }
+        times[name] = t
+        print(f"[kernel] fleet {name} x{n_f}: slices {tuple(a_sl.shape)} x {tuple(b_sl.shape)}; "
+              f"one K1 and one K1s launch per operand, == the {n_f} single launches and the "
+              f"plain versions bitwise; device ms (graph of 20 calls): K1 {t['pairs_f64']:.4f} "
+              f"({n_f} single launches {t['pairs_singles_f64']:.4f}, bound "
+              f"{t['pairs_bound'][0]:.5f} by {t['pairs_bound'][1]})  K1s A {t['slice_a']:.4f} "
+              f"B {t['slice_b']:.4f} (bound A {t['slice_a_bound'][0]:.5f} B "
+              f"{t['slice_b_bound'][0]:.5f} by {t['slice_a_bound'][1]})  batched f64 "
+              f"torch.matmul {t['matmul']:.4f}; plain eager ms K1 {t['pairs_plain']:.4f} K1s A "
+              f"{t['slice_a_plain']:.4f} B {t['slice_b_plain']:.4f}", flush=True)
+    return worst, worst_slice, times
+
+
+def _batch_phase(torch, hpmm, profiled_solve):
+    """solve_batch on the card: three fleets at the sizes users batch,
+    each instance held to its own solo (default, fused) solve of this run.
+    Returns the gpp fleet's (K1, K1s) launches, counted from 0 around its
+    solve_batch."""
+    from types import SimpleNamespace
+
+    from hdsdp_tpu_torch import solve_batch
+    from hdsdp_tpu_torch.models import synthetic
+    from hdsdp_tpu_torch.models.problem import SDPProblem
+    from hdsdp_tpu_torch.solver import batch as batch_mod
+    from hdsdp_tpu_torch.solver.solver import HDSDPSolver
+
+    class NoSolo:
+        """Stands in for the solo re-solves in the profiled fleet call, so
+        that its counts are the fleet's own work."""
+
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def optimize(self):
+            return SimpleNamespace(stats={})
+
+    gpp_launches = None
+    for name, gen, kwargs, n_f, over in BATCH_FLEETS:
+        probs = [SDPProblem.from_sdpa(getattr(synthetic, gen)(seed=s, **kwargs))
+                 for s in range(n_f)]
+
+        def solo(prob):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = HDSDPSolver(prob, device="cuda", verbose=False, **over).optimize()
+            torch.cuda.synchronize()
+            return r, time.perf_counter() - t0
+
+        def fleet():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rs = solve_batch(probs, device="cuda", verbose=False, **over)
+            torch.cuda.synchronize()
+            return rs, time.perf_counter() - t0
+
+        solo(probs[0])  # warm-up: libraries and kernels loaded
+        # peaks are counted above what the earlier phases left allocated
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        solos, solo_walls, solo_launches = [], [], [0, 0]
+        for prob in probs:
+            k0, s0 = hpmm.KERNEL_LAUNCHES, hpmm.SLICE_LAUNCHES
+            r, wall = solo(prob)
+            solo_launches[0] += hpmm.KERNEL_LAUNCHES - k0
+            solo_launches[1] += hpmm.SLICE_LAUNCHES - s0
+            solos.append(r)
+            solo_walls.append(wall)
+        solo_peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        hpmm.KERNEL_LAUNCHES = hpmm.SLICE_LAUNCHES = 0
+        rs, wall = fleet()
+        launches = (hpmm.KERNEL_LAUNCHES, hpmm.SLICE_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - base
+        acct = rs[0].stats["fleet"]
+        fleet_stats = {"fused": "batch", "fused_host_reads": acct["host_reads"]}
+        saved, batch_mod.HDSDPSolver = batch_mod.HDSDPSolver, NoSolo
+        try:
+            _, _, fc = profiled_solve(lambda: (lambda out: (SimpleNamespace(
+                n_iters=acct["iterations"], stats=fleet_stats), out[1]))(fleet()))
+        finally:
+            batch_mod.HDSDPSolver = saved
+        _, _, sc = profiled_solve(lambda: solo(probs[0]))
+        rel = [abs(a.d_obj - b.d_obj) / abs(b.d_obj) for a, b in zip(rs, solos)]
+        dmax = [float(abs(r.dimacs).max()) for r in rs]
+        solo_dmax = [float(abs(r.dimacs).max()) for r in solos]
+        print(json.dumps({
+            "batch": name, "fleet_size": n_f, "generator": f"{gen}({kwargs}, seed=0..{n_f - 1})",
+            "overrides": over, "m": int(rs[0].y.shape[0]),
+            "status": [r.status for r in rs], "solo_status": [r.status for r in solos],
+            "iterations": [r.n_iters for r in rs], "solo_iterations": [r.n_iters for r in solos],
+            "fleet_iterations": acct["iterations"],
+            "batch_solo": sum(r.stats["batch_solo"] for r in rs),
+            "batch_exits": [r.stats.get("batch_exit") for r in rs],
+            "solo_phase_exits": [r.stats.get("fused_exit") for r in solos],
+            "rel_d_obj_to_solo": rel, "dimacs_max": dmax, "solo_dimacs_max": solo_dmax,
+            "wall_s": wall, "solo_walls_sum_s": sum(solo_walls), "solo_walls_s": solo_walls,
+            "peak_device_bytes": peak, "solo_peak_device_bytes": solo_peak,
+            "fleet": acct, "hpmm_launches_whole_call": launches,
+            "solo_hpmm_launches_sum": solo_launches,
+            "per_fleet_iteration": fc["per_iteration"], "per_solo_iteration": sc["per_iteration"],
+            "profiled_wall_s_fleet_without_resolves_solo": [fc["wall_s"], sc["wall_s"]],
+            "device_busy_share_fleet_solo": [fc["device_busy_share_of_profiled_wall"],
+                                             sc["device_busy_share_of_profiled_wall"]],
+            "top_kernels_fleet_solo": [fc["top_kernels_ms"], sc["top_kernels_ms"]],
+        }), flush=True)
+        # a member the fleet finished is held to its solo solve (status,
+        # d_obj 1e-7, DIMACS 1e-6); the maxcut fleets must finish every
+        # member.  A member whose phase B ends otherwise than OPTIMAL is
+        # re-solved solo, as the JAX module does: gpp's solo solves
+        # themselves end phase B on the small-step rule (NUMERICAL) and are
+        # made PRIMAL_DUAL_OPTIMAL by their DIMACS check, so every gpp
+        # member is re-solved (in the JAX package's fleet too,
+        # tests/jax_reference.py gpp500 --batch 4).  There the fleet must
+        # end each member's phase B as its solo solve ends it (phase and
+        # status; the iteration moves with the batched kernels' rounding),
+        # and the re-solve must repeat this run's solo solve bit for bit.
+        in_fleet = [r.stats["batch_solo"] == 0 for r in rs]
+
+        def same_end(r, s):
+            return r.stats["batch_exit"].split(" at ")[0] == s.stats["fused_exit"].split(" at ")[0]
+
+        checks = {
+            "finished_in_fleet": (all(in_fleet) if over.get("kkt_hp") != "on" else
+                                  all(f or same_end(r, s) for f, r, s in zip(in_fleet, rs, solos))),
+            "status": all(r.status == s.status == "PRIMAL_DUAL_OPTIMAL"
+                          for r, s in zip(rs, solos)),
+            "d_obj": all(x <= 1e-7 if f else x == 0.0 for x, f in zip(rel, in_fleet)),
+            "dimacs": all(d <= 1e-6 if f else d == sd
+                          for d, sd, f in zip(dmax, solo_dmax, in_fleet)),
+            "device": all(r.device.startswith("cuda") for r in rs),
+        }
+        if over.get("kkt_hp") == "on":
+            k1, k1s = acct["kernel_launches"]
+            gpp_launches = (k1, k1s)
+            builds = acct["kkt_builds"]
+            # one K1 launch per product for the whole fleet: gpp's slot
+            # bucket (r = 1, no dense part) has two products per KKT build
+            # with M (FU and the one pair), one without ("corr"); K1s slices
+            # both operands of each
+            products = 2 * (builds.get("inf", 0) + builds.get("hsd", 0)) + builds.get("corr", 0)
+            checks["one_launch_per_fleet_product"] = 0 < k1 == products and k1s == 2 * k1
+            # a fleet of one runs the batched bodies with single-instance
+            # linear algebra: its phase B must end exactly where the solo
+            # solve's does, iteration included
+            one = solve_batch(probs[:1], device="cuda", verbose=False, **over)[0]
+            one_end = (one.stats.get("batch_exit")
+                       or f"phase B: PRIMAL_DUAL_OPTIMAL at iteration {one.n_iters}")
+            checks["fleet_of_one_ends_as_solo"] = (one_end == solos[0].stats["fused_exit"]
+                                                   and one.d_obj == solos[0].d_obj)
+            print(f"[batch] {name}: the fleet's own K1 launches {k1} = one per fleet product "
+                  f"({products}), K1s {k1s}; members finished in the fleet {sum(in_fleet)} of "
+                  f"{n_f}; phase B ends, fleet / solo: {[r.stats.get('batch_exit') for r in rs]} / "
+                  f"{[s.stats['fused_exit'] for s in solos]}; a fleet of one of seed 0: "
+                  f"{one_end} / {solos[0].stats['fused_exit']}", flush=True)
+        else:
+            checks["no_own_kernels"] = launches == (0, 0)
+        if not all(checks.values()):
+            raise AssertionError(f"the {name} fleet: checks failed: {checks}")
+
+    # the mixed-shape fleet of tests/test_batch.py is refused
+    mixed = [SDPProblem.from_sdpa(synthetic.random_sdpa(m=16, block_dims=[8], seed=1)),
+             SDPProblem.from_sdpa(synthetic.random_sdpa(m=20, block_dims=[8], seed=2))]
+    try:
+        solve_batch(mixed, device="cuda")
+    except ValueError as e:
+        print(f"[batch] mixed shapes (random m = 16 and m = 20): ValueError ({e})", flush=True)
+    else:
+        raise AssertionError("solve_batch took a fleet of mixed shapes")
+    return gpp_launches
 
 
 def _family_phase(torch, solve_sdpa_file, instances, hpmm):
@@ -1007,10 +1273,43 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
-    # -- kernels vs plain versions --------------------------------------
+    # -- kernels vs plain versions, single and with a fleet axis ----------
     max_err, max_err_slice, times = _kernel_phase(hpmm, hpmm_cases, dev)
+    f_err, f_err_slice, fleet_times = _fleet_kernel_phase(hpmm, dev)
+    max_err, max_err_slice = max(max_err, f_err), max(max_err_slice, f_err_slice)
 
-    # -- the slice: gpp500 with the Ozaki Schur assembly ------------------
+    launches, slice_launches, wall = _slice_phase(torch, hpmm, solve_sdpa_file,
+                                                  write_sdpa, gpp_sdpa)
+
+    # -- the other families at SDPLIB size, default parameters -------------
+    dense_d_obj = _family_phase(torch, solve_sdpa_file, instances, hpmm)
+
+    # -- the default path: the fused phase bodies -------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        fused_launches, fused_bits = _fused_phase(torch, solve_sdpa_file, instances, hpmm,
+                                                  profiled_solve, tmp)
+
+    # -- operator mode: m = 25,001 by default, two instances forced --------
+    with tempfile.TemporaryDirectory() as tmp:
+        _operator_phase(torch, solve_sdpa_file, instances, hpmm, dense_d_obj, tmp)
+
+    # -- the LP solver, the CLI, checkpoints, the KKT check, the native
+    # reader and the thread-count repair ----------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        _api_phase(torch, solve_sdpa_file, instances, hpmm, fused_bits, tmp)
+
+    # -- fleets of same-shape instances: solve_batch -----------------------
+    batch_launches = _batch_phase(torch, hpmm, profiled_solve)
+
+    _summary(torch, times, fleet_times, max_err, max_err_slice, wall,
+             (launches, slice_launches), fused_launches, batch_launches)
+    return 0
+
+
+def _slice_phase(torch, hpmm, solve_sdpa_file, write_sdpa, gpp_sdpa):
+    """gpp500 on the host loop with the Ozaki Schur assembly, counting the
+    kernels' launches from 0, and a small solve on the card against the
+    host; returns (K1 launches, K1s launches, wall s)."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "gpp500.dat-s")
         write_sdpa(gpp_sdpa(n=500, seed=0), path)
@@ -1053,24 +1352,13 @@ def main() -> int:
     if not (rg.status == rc.status == "PRIMAL_DUAL_OPTIMAL"
             and abs(rg.n_iters - rc.n_iters) <= 1 and rel_small <= 1e-7):
         raise AssertionError("small solve on the card disagrees with the host")
+    return launches, slice_launches, wall
 
-    # -- the other families at SDPLIB size, default parameters -------------
-    dense_d_obj = _family_phase(torch, solve_sdpa_file, instances, hpmm)
 
-    # -- the default path: the fused phase bodies -------------------------
-    with tempfile.TemporaryDirectory() as tmp:
-        fused_launches, fused_bits = _fused_phase(torch, solve_sdpa_file, instances, hpmm,
-                                                  profiled_solve, tmp)
-
-    # -- operator mode: m = 25,001 by default, two instances forced --------
-    with tempfile.TemporaryDirectory() as tmp:
-        _operator_phase(torch, solve_sdpa_file, instances, hpmm, dense_d_obj, tmp)
-
-    # -- the LP solver, the CLI, checkpoints, the KKT check, the native
-    # reader and the thread-count repair ----------------------------------
-    with tempfile.TemporaryDirectory() as tmp:
-        _api_phase(torch, solve_sdpa_file, instances, hpmm, fused_bits, tmp)
-
+def _summary(torch, times, fleet_times, max_err, max_err_slice, wall, slice_launches,
+             fused_launches, batch_launches):
+    """The kernel table line, the card's line and the contract line."""
+    launches, slice_launches = slice_launches
     # K1 at the pair shape; K1s as the mean of the four operand launches of
     # the main path's two products (FU: A and a row-major B; pair: A and B
     # as a transposed view), its plain version and bound likewise; each
@@ -1088,6 +1376,15 @@ def main() -> int:
         "bound_ms": tp["pairs_bound"][0],
         "bound_by": tp["pairs_bound"][1],
         "library_ms": tp["matmul"],
+        # the fleet form at the gpp fleet's pair shape, and the launches of
+        # each path that reaches the kernel (counted from 0 around it)
+        "fleet": BATCH_KERNEL_FLEET,
+        "fleet_ms": fleet_times["pair"]["pairs_f64"],
+        "fleet_plain_ms": fleet_times["pair"]["pairs_plain"],
+        "fleet_bound_ms": fleet_times["pair"]["pairs_bound"][0],
+        "fleet_library_ms": fleet_times["pair"]["matmul"],
+        "launches_by_path": {"slice (host loop)": launches, "fused": fused_launches[0],
+                             "batch (gpp fleet)": batch_launches[0]},
     }, {
         "name": "hpmm_slice",
         "route": "cuda",
@@ -1102,12 +1399,21 @@ def main() -> int:
                      + tp["slice_a_bound"][0] + tp["slice_b_bound"][0]) / 4,
         "bound_by": tp["slice_a_bound"][1],
         "library_ms": None,
+        "fleet": BATCH_KERNEL_FLEET,
+        "fleet_ms": sum(t[k] for t in fleet_times.values() for k in ("slice_a", "slice_b")) / 4,
+        "fleet_plain_ms": sum(t[k] for t in fleet_times.values()
+                              for k in ("slice_a_plain", "slice_b_plain")) / 4,
+        "fleet_bound_ms": sum(t[k][0] for t in fleet_times.values()
+                              for k in ("slice_a_bound", "slice_b_bound")) / 4,
+        "launches_by_path": {"slice (host loop)": slice_launches, "fused": fused_launches[1],
+                             "batch (gpp fleet)": batch_launches[1]},
     }]
     print(f"[summary] whole hpmm at the pair shape: {tp['hpmm_device']:.4f} ms on the device, "
           f"{tp['hpmm']:.4f} ms per eager call; f64 torch.matmul {tp['matmul']:.4f} / "
           f"{tp['matmul_eager']:.4f} ms; gpp500 solve wall {wall:.3f} s; launches "
           f"(K1, K1s) of the host-loop gpp500 solve {(launches, slice_launches)}, of the fused "
-          f"(default) one {fused_launches}", flush=True)
+          f"(default) one {fused_launches}, of the gpp fleet's own bodies {batch_launches}",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(_smi_line())
     print(json.dumps({"ok": True, "device": {
@@ -1115,7 +1421,6 @@ def main() -> int:
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}))
-    return 0
 
 
 if __name__ == "__main__":

@@ -13,7 +13,8 @@ matrix-free operator mode, or with ``fused=False``) by the host-driven
 loop of ``solver/algo.py``.  Beside it: the standalone LP interior-point
 solver for MPS files (``solve_mps_file``, ``LPSolver``), checkpoint and
 resume (``HDSDPSolver.optimize(resume_from=..., checkpoint_to=...)``) and
-the KKT cross-check (``kkt_cross_validate``).
+the KKT cross-check (``kkt_cross_validate``), and ``solve_batch``: a
+fleet of same-shape SDPs through one set of fused phase bodies.
 
 Policy: every tensor is float64 on the device the caller names; the
 public entry points default to ``device="cuda"`` and raise when no card
@@ -31,6 +32,7 @@ torch.backends.cudnn.allow_tf32 = False
 from hdsdp_tpu_torch.io.mps import read_mps  # noqa: E402
 from hdsdp_tpu_torch.io.sdpa import read_sdpa, write_sdpa  # noqa: E402
 from hdsdp_tpu_torch.models.problem import SDPProblem  # noqa: E402
+from hdsdp_tpu_torch.solver.batch import solve_batch  # noqa: E402
 from hdsdp_tpu_torch.solver.lpsolve import LPParams, LPSolver, solve_mps_file  # noqa: E402
 from hdsdp_tpu_torch.solver.solver import HDSDPSolver, solve_sdpa_file  # noqa: E402
 from hdsdp_tpu_torch.utils.device import DTYPE, resolve_device  # noqa: E402
@@ -48,6 +50,7 @@ __all__ = [
     "read_mps",
     "read_sdpa",
     "resolve_device",
+    "solve_batch",
     "solve_mps_file",
     "solve_sdpa_file",
     "write_sdpa",

@@ -62,6 +62,12 @@
 //     ([q, N, K] storage, passed as the transposed view), as the slicing
 //     kernel stores them.
 //
+// A fleet of `batch` same-shape products (the vmapped TPU function, whose
+// Pallas grid gains one axis) is one launch: blockIdx.z picks the instance,
+// whose operands and output start `s*_b` elements further on and whose
+// exponents are the next M and N entries of ea and eb.  The tile loop is
+// untouched, so each instance's output is bitwise that of its own launch.
+//
 // Interface (plain C, loaded with ctypes): strides are in elements, the
 // ragged M and N edges are masked here, K must be a multiple of 256 (the
 // caller zero-pads), 0 <= gmax <= 7, the launch goes on the caller's
@@ -97,9 +103,9 @@ struct Params {
   const int* ea;
   const int* eb;
   int M, N, K;
-  long long sa_q, sa_m;  // in elements; K is contiguous in both operands
-  long long sb_q, sb_n;
-  long long sc_m, sc_n;
+  long long sa_b, sa_q, sa_m;  // in elements; K is contiguous in both operands
+  long long sb_b, sb_q, sb_n;
+  long long sc_b, sc_m, sc_n;
 };
 
 __device__ __forceinline__ void dd_fold(float& ch, float& cl, float p) {
@@ -152,7 +158,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 
 template <int GMAX>
 __global__ void __launch_bounds__(kThreads, GMAX <= 5 ? 2 : 1)
-hpmm_pairs_kernel(const Params p) {
+hpmm_pairs_kernel(Params p) {
   constexpr int kQ = GMAX + 1;  // slices used per operand
   constexpr int kPairs = (GMAX + 1) * (GMAX + 2) / 2;
   constexpr int kSlice = kBM * kRow;        // elements of one slice of one operand
@@ -161,6 +167,15 @@ hpmm_pairs_kernel(const Params p) {
   static_assert(kBM == kBN, "the loader treats both operands alike");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+
+  // this block's instance of the fleet
+  p.a += (long long)blockIdx.z * p.sa_b;
+  p.b += (long long)blockIdx.z * p.sb_b;
+  if (p.c64 != nullptr) p.c64 += (long long)blockIdx.z * p.sc_b;
+  if (p.ch != nullptr) p.ch += (long long)blockIdx.z * p.sc_b;
+  if (p.cl != nullptr) p.cl += (long long)blockIdx.z * p.sc_b;
+  if (p.ea != nullptr) p.ea += (long long)blockIdx.z * p.M;
+  if (p.eb != nullptr) p.eb += (long long)blockIdx.z * p.N;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -290,7 +305,7 @@ hpmm_pairs_kernel(const Params p) {
 }
 
 template <int GMAX>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   constexpr int kSmem = kStages * 2 * (GMAX + 1) * kBM * kRow * 2;
   // above 48 KB of dynamic shared memory needs an opt-in, once per device
   static bool configured[64] = {};
@@ -303,14 +318,15 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     if (dev < 64) configured[dev] = true;
   }
-  const dim3 grid((p.N + kBN - 1) / kBN, (p.M + kBM - 1) / kBM);
+  const dim3 grid((p.N + kBN - 1) / kBN, (p.M + kBM - 1) / kBM, batch);
   hpmm_pairs_kernel<GMAX><<<grid, kThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // rows of 8 K values can be copied 16 bytes at a time
-bool stageable(const void* base, long long s_q, long long s_row, long long s_k) {
-  return s_k == 1 && s_q % 8 == 0 && s_row % 8 == 0 &&
+bool stageable(const void* base, long long s_b, long long s_q, long long s_row,
+               long long s_k) {
+  return s_k == 1 && s_b % 8 == 0 && s_q % 8 == 0 && s_row % 8 == 0 &&
          reinterpret_cast<uintptr_t>(base) % 16 == 0;
 }
 
@@ -318,17 +334,18 @@ bool stageable(const void* base, long long s_q, long long s_row, long long s_k) 
 
 extern "C" int hpmm_pairs_launch(const void* a, const void* b, void* ch, void* cl,
                                  void* c64, const void* ea, const void* eb,
-                                 int M, int N, int K, int gmax,
-                                 long long sa_q, long long sa_m, long long sa_k,
-                                 long long sb_q, long long sb_k, long long sb_n,
+                                 int M, int N, int K, int gmax, int batch,
+                                 long long sa_b, long long sa_q, long long sa_m,
+                                 long long sa_k, long long sb_b, long long sb_q,
+                                 long long sb_k, long long sb_n, long long sc_b,
                                  long long sc_m, long long sc_n, void* stream) {
   if (K % kChunk != 0 || (ea == nullptr) != (eb == nullptr) ||
       (c64 != nullptr && ea == nullptr) ||
-      (c64 == nullptr && (ch == nullptr || cl == nullptr)) ||
-      !stageable(a, sa_q, sa_m, sa_k) || !stageable(b, sb_q, sb_n, sb_k)) {
+      (c64 == nullptr && (ch == nullptr || cl == nullptr)) || batch > 65535 ||
+      !stageable(a, sa_b, sa_q, sa_m, sa_k) || !stageable(b, sb_b, sb_q, sb_n, sb_k)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+  if (M <= 0 || N <= 0 || batch <= 0) return (int)cudaGetLastError();
   Params p;
   p.a = (const __nv_bfloat16*)a;
   p.b = (const __nv_bfloat16*)b;
@@ -340,22 +357,25 @@ extern "C" int hpmm_pairs_launch(const void* a, const void* b, void* ch, void* c
   p.M = M;
   p.N = N;
   p.K = K;
+  p.sa_b = sa_b;
   p.sa_q = sa_q;
   p.sa_m = sa_m;
+  p.sb_b = sb_b;
   p.sb_q = sb_q;
   p.sb_n = sb_n;
+  p.sc_b = sc_b;
   p.sc_m = sc_m;
   p.sc_n = sc_n;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (gmax) {
-    case 0: return (int)launch<0>(p, s);
-    case 1: return (int)launch<1>(p, s);
-    case 2: return (int)launch<2>(p, s);
-    case 3: return (int)launch<3>(p, s);
-    case 4: return (int)launch<4>(p, s);
-    case 5: return (int)launch<5>(p, s);
-    case 6: return (int)launch<6>(p, s);
-    case 7: return (int)launch<7>(p, s);
+    case 0: return (int)launch<0>(p, batch, s);
+    case 1: return (int)launch<1>(p, batch, s);
+    case 2: return (int)launch<2>(p, batch, s);
+    case 3: return (int)launch<3>(p, batch, s);
+    case 4: return (int)launch<4>(p, batch, s);
+    case 5: return (int)launch<5>(p, batch, s);
+    case 6: return (int)launch<6>(p, batch, s);
+    case 7: return (int)launch<7>(p, batch, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

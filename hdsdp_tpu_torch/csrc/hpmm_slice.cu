@@ -37,10 +37,16 @@
 // the tile loaded for the maximum is reused for the slicing, so the input is
 // read from device memory once.
 //
+// A fleet of `batch` same-shape operands (the vmapped form of the TPU
+// function) is one launch: blockIdx.y picks the instance, whose input
+// starts `s*_b` elements further on and whose slices and exponents are the
+// next [q, I, Kp] and [I] blocks of out and e.  Nothing else changes, so
+// each instance's output is bitwise what its own launch gives.
+//
 // Interface (plain C, loaded with ctypes): strides in elements; out is
-// [q, I, Kp] contiguous bf16, e is [I] int32; lo == null selects the f64
-// entry; the launch goes on the caller's stream, nothing is allocated, the
-// return value is a cudaError.
+// [batch, q, I, Kp] contiguous bf16, e is [batch, I] int32; lo == null
+// selects the f64 entry; the launch goes on the caller's stream, nothing is
+// allocated, the return value is a cudaError.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,7 +116,10 @@ struct Source;
 template <>
 struct Source<F64Cell> {
   const double* x;
-  long long s_i, s_k;
+  long long s_b, s_i, s_k;
+  __device__ __forceinline__ Source at(long long b) const {
+    return Source{x + b * s_b, s_b, s_i, s_k};
+  }
   __device__ __forceinline__ F64Cell load(long long i, long long k) const {
     return F64Cell{x[i * s_i + k * s_k]};
   }
@@ -120,7 +129,10 @@ template <>
 struct Source<DDCell> {
   const float* h;
   const float* l;
-  long long s_i, s_k, sl_i, sl_k;
+  long long s_b, s_i, s_k, sl_b, sl_i, sl_k;
+  __device__ __forceinline__ Source at(long long b) const {
+    return Source{h + b * s_b, l + b * sl_b, s_b, s_i, s_k, sl_b, sl_i, sl_k};
+  }
   __device__ __forceinline__ DDCell load(long long i, long long k) const {
     return DDCell{h[i * s_i + k * s_k], l[i * sl_i + k * sl_k]};
   }
@@ -129,7 +141,7 @@ struct Source<DDCell> {
 
 template <typename Cell>
 __global__ void __launch_bounds__(kThreads)
-hpmm_slice_kernel(const Source<Cell> src, __nv_bfloat16* __restrict__ out,
+hpmm_slice_kernel(const Source<Cell> src0, __nv_bfloat16* __restrict__ out,
                   int* __restrict__ e_out, int I, int K, int Kp, int q) {
   __shared__ Cell tile[kRows][kTile + 1];
   using Mag = decltype(cell_abs(Cell{}));
@@ -138,6 +150,9 @@ hpmm_slice_kernel(const Source<Cell> src, __nv_bfloat16* __restrict__ out,
   const int lane = tid & 31;
   const int warp = tid >> 5;  // the row of the tile this warp reduces and slices
   const int i0 = blockIdx.x * kRows;
+  const Source<Cell> src = src0.at(blockIdx.y);  // this block's instance
+  out += (long long)blockIdx.y * q * I * Kp;
+  e_out += (long long)blockIdx.y * I;
   const int ntiles = (Kp + kTile - 1) / kTile;
   const bool k_fast = src.s_k <= src.s_i;  // which index runs along the threads
 
@@ -198,22 +213,23 @@ hpmm_slice_kernel(const Source<Cell> src, __nv_bfloat16* __restrict__ out,
 }  // namespace
 
 extern "C" int hpmm_slice_launch(const void* x, const void* lo, void* out, void* e,
-                                 int I, int K, int Kp, int q,
-                                 long long sx_i, long long sx_k,
-                                 long long sl_i, long long sl_k, void* stream) {
-  if (q < 1 || q > kMaxQ || Kp < K || Kp % 2 != 0 || K < 0 ||
+                                 int I, int K, int Kp, int q, int batch,
+                                 long long sx_b, long long sx_i, long long sx_k,
+                                 long long sl_b, long long sl_i, long long sl_k,
+                                 void* stream) {
+  if (q < 1 || q > kMaxQ || Kp < K || Kp % 2 != 0 || K < 0 || batch > 65535 ||
       reinterpret_cast<uintptr_t>(out) % 4 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  if (I <= 0 || Kp == 0) return (int)cudaGetLastError();
-  const dim3 grid((I + kRows - 1) / kRows);
+  if (I <= 0 || Kp == 0 || batch <= 0) return (int)cudaGetLastError();
+  const dim3 grid((I + kRows - 1) / kRows, batch);
   const cudaStream_t s = (cudaStream_t)stream;
   if (lo == nullptr) {
-    Source<F64Cell> src{(const double*)x, sx_i, sx_k};
+    Source<F64Cell> src{(const double*)x, sx_b, sx_i, sx_k};
     hpmm_slice_kernel<F64Cell><<<grid, kThreads, 0, s>>>(
         src, (__nv_bfloat16*)out, (int*)e, I, K, Kp, q);
   } else {
-    Source<DDCell> src{(const float*)x, (const float*)lo, sx_i, sx_k, sl_i, sl_k};
+    Source<DDCell> src{(const float*)x, (const float*)lo, sx_b, sx_i, sx_k, sl_b, sl_i, sl_k};
     hpmm_slice_kernel<DDCell><<<grid, kThreads, 0, s>>>(
         src, (__nv_bfloat16*)out, (int*)e, I, K, Kp, q);
   }

@@ -6,7 +6,10 @@ Parity: the reference uses dpotrf success/failure as the PSD predicate
 A failed factor is filled with NaN, as the JAX package's factor is, so
 every quantity derived from it (log-det, inverse) is NaN too.
 
-All functions accept batched inputs [..., n, n].
+All functions accept batched inputs [..., n, n].  Where a function
+reduces over its batch, ``lead`` names the leading axes it keeps apart: a
+fleet's (N,) holds N independent instances (solver.batch), each reduced
+on its own; a single solve's () reduces everything.
 """
 
 from __future__ import annotations
@@ -14,23 +17,27 @@ from __future__ import annotations
 import torch
 
 
-def psd_check(S: torch.Tensor):
-    """(is_interior, L): a 0-dim bool tensor and the lower factor.
+def psd_check(S: torch.Tensor, lead: tuple = ()):
+    """(is_interior, L): a bool tensor of shape ``lead`` (0-dim for a
+    single solve, one per instance of a fleet) and the lower factor.
 
     ``is_interior`` stays on the device; reading it is the caller's
-    choice of sync point."""
+    choice of sync point.  A failed factor stays per instance: it sets
+    only its own instance's flag and its own matrix to NaN."""
     L, info = torch.linalg.cholesky_ex(S)
     bad = info != 0
     # a NaN input need not raise info on every backend: check the factor
-    ok = torch.logical_not(bad.any()) & torch.isfinite(L).all()
+    ok = torch.logical_not(bad.reshape(lead + (-1,)).any(-1)) & torch.isfinite(
+        L).reshape(lead + (-1,)).all(-1)
     L = torch.where(bad[..., None, None], torch.nan, L)
     return ok, L
 
 
-def chol_logdet(L: torch.Tensor) -> torch.Tensor:
+def chol_logdet(L: torch.Tensor, lead: tuple = ()) -> torch.Tensor:
     """log det(S) = 2 sum log diag(L) (ref sdpDenseConeGetBarrier,
-    hdsdp_conic_sdp.c:2279-2287), summed over the batch."""
-    return 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)))
+    hdsdp_conic_sdp.c:2279-2287), summed over the batch but ``lead``."""
+    logs = torch.log(torch.diagonal(L, dim1=-2, dim2=-1))
+    return 2.0 * logs.reshape(lead + (-1,)).sum(-1)
 
 
 def chol_inverse(L: torch.Tensor, use_dd: bool = False) -> torch.Tensor:
@@ -40,7 +47,7 @@ def chol_inverse(L: torch.Tensor, use_dd: bool = False) -> torch.Tensor:
     package, which exists there for single blocks of n >= 512; that path
     is not ported and raises rather than quietly running f64."""
     n = L.shape[-1]
-    if use_dd and L.ndim == 3 and L.shape[0] == 1 and n >= 512:
+    if use_dd and L.ndim >= 3 and L.shape[-3] == 1 and n >= 512:
         raise NotImplementedError("ddchol")
     eye = torch.eye(n, dtype=L.dtype, device=L.device).expand(L.shape)
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)

@@ -34,10 +34,12 @@ _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 # kernel -> {entry point: argtypes}; every entry point returns a cudaError
 SIGNATURES = {
-    # a, b, ch, cl, c64, ea, eb | M, N, K, gmax | a, b and output strides | stream
-    "hpmm_pairs": {"hpmm_pairs_launch": [_PTR] * 7 + [_INT] * 4 + [_LL] * 8 + [_PTR]},
-    # x (or h), l, out, e | I, K, Kp, q | strides of x and l | stream
-    "hpmm_slice": {"hpmm_slice_launch": [_PTR] * 4 + [_INT] * 4 + [_LL] * 4 + [_PTR]},
+    # a, b, ch, cl, c64, ea, eb | M, N, K, gmax, fleet size | a, b and
+    # output strides, each with its fleet stride first | stream
+    "hpmm_pairs": {"hpmm_pairs_launch": [_PTR] * 7 + [_INT] * 5 + [_LL] * 11 + [_PTR]},
+    # x (or h), l, out, e | I, K, Kp, q, fleet size | strides of x and l,
+    # each with its fleet stride first | stream
+    "hpmm_slice": {"hpmm_slice_launch": [_PTR] * 4 + [_INT] * 5 + [_LL] * 6 + [_PTR]},
 }
 
 # name -> (ctypes library, build record); filled on first use

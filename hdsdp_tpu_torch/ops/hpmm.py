@@ -20,6 +20,14 @@ Result: C = A @ B with relative error ~2^-45.  On a CUDA tensor one
 :func:`hpmm_pairs` with its f64 epilogue) and no other device work.  For
 CPU tensors, and only for them, the wrappers run the plain versions
 :func:`slice_ref` and :func:`matmul_sliced_ref`.
+
+Every function also takes a FLEET: operands with one leading axis of N
+same-shape instances (a [N, M, K], b [N, K, N'], slices [N, q, M, Kp] and
+[N, q, Kp, N'], exponents [N, M, 1] and [N, 1, N']), as ``jax.vmap`` of
+the JAX package's hpmm gives its Pallas kernel one more grid axis.  On the
+card the fleet is one more grid dimension of each kernel, so a fleet's
+product is still three launches, and each instance's result is bitwise
+the one its single launch gives.
 """
 
 from __future__ import annotations
@@ -52,8 +60,9 @@ def _pow2(e: torch.Tensor, dtype) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(e, dtype=torch.float32), e).to(dtype)
 
 
-def _slices(nh: torch.Tensor, nl: torch.Tensor, q: int) -> torch.Tensor:
-    """q bf16 slices of 8 bits each from normalized DD values.
+def _slices(nh: torch.Tensor, nl: torch.Tensor, q: int, dim: int = 0) -> torch.Tensor:
+    """q bf16 slices of 8 bits each from normalized DD values, stacked
+    along ``dim`` (1 for a fleet).
 
     Slice t holds bits [8t, 8t+8) below the unit scale and has <= 9
     significant bits, so the bf16 cast is exact."""
@@ -65,7 +74,7 @@ def _slices(nh: torch.Tensor, nl: torch.Tensor, q: int) -> torch.Tensor:
         out.append(s.to(torch.bfloat16))
         # rh - s is exact; two_sum pulls rl's bits into later slices
         rh, rl = dd.two_sum(rh - s, rl)
-    return torch.stack(out)
+    return torch.stack(out, dim=dim)
 
 
 def _padded_k(k_dim: int, kpad: int | None) -> int:
@@ -79,16 +88,18 @@ def _padded_k(k_dim: int, kpad: int | None) -> int:
 
 
 def _split_operand(x):
-    """(h, l or None, the 2-d tensor that gives shape and device) of a
-    slicing input: one f64 matrix, or an f32 double-single pair."""
+    """(h, l or None) of a slicing input: one f64 matrix, or an f32
+    double-single pair; 2-d, or 3-d for a fleet."""
     if isinstance(x, torch.Tensor):
-        if x.dtype != torch.float64 or x.ndim != 2:
-            raise TypeError("hpmm_slice takes a 2-d float64 tensor or an (h, l) float32 pair")
+        if x.dtype != torch.float64 or x.ndim not in (2, 3):
+            raise TypeError("hpmm_slice takes a 2-d (3-d for a fleet) float64 tensor "
+                            "or an (h, l) float32 pair")
         return x, None
     h, l = x
     if not (isinstance(h, torch.Tensor) and isinstance(l, torch.Tensor)
-            and h.dtype == l.dtype == torch.float32 and h.ndim == 2):
-        raise TypeError("hpmm_slice takes a 2-d float64 tensor or an (h, l) float32 pair")
+            and h.dtype == l.dtype == torch.float32 and h.ndim in (2, 3)):
+        raise TypeError("hpmm_slice takes a 2-d (3-d for a fleet) float64 tensor "
+                        "or an (h, l) float32 pair")
     if h.shape != l.shape or h.device != l.device:
         raise ValueError("the (h, l) pair disagrees in shape or device")
     return h, l
@@ -101,13 +112,16 @@ def slice_ref(x, axis: int, gmax: int = 5, kpad: int | None = None):
     axis the scale is taken over and K runs along: 1 for a left operand
     [M, K] (row scales), 0 for a right operand [K, N] (column scales).
     Returns (slices [q, M, Kp] or [q, Kp, N] bf16 with K zero-padded to a
-    multiple of 256, e int32 [M, 1] or [1, N]: the scales are 2^e)."""
+    multiple of 256, e int32 [M, 1] or [1, N]: the scales are 2^e).  A
+    fleet x [B, ., .] gives slices [B, q, ., .] and exponents [B, ., .]."""
     h, l = _split_operand(x)
-    e = _exp_of(torch.amax(torch.abs(h), dim=axis, keepdim=True))
+    fleet = h.ndim - 2
+    ax = axis + fleet
+    e = _exp_of(torch.amax(torch.abs(h), dim=ax, keepdim=True))
     inv = _pow2(-e, h.dtype)  # exact scaling
     nh, nl = dd.from_f64(h * inv) if l is None else (h * inv, l * inv)
-    sl = _slices(nh, nl, gmax + 1)
-    pad = _padded_k(h.shape[axis], kpad) - h.shape[axis]
+    sl = _slices(nh, nl, gmax + 1, dim=fleet)
+    pad = _padded_k(h.shape[ax], kpad) - h.shape[ax]
     if pad:
         sl = F.pad(sl, [0, pad] if axis == 1 else [0, 0, 0, pad])
     return sl.contiguous(), e
@@ -118,7 +132,7 @@ def hpmm_slice(x, axis: int, gmax: int = 5, kpad: int | None = None):
     the CUDA kernel K1s for CUDA tensors, the plain version for CPU
     tensors.  On the card a right operand's slices come back as the
     [q, Kp, N] view of K-contiguous [q, N, Kp] storage, the layout K1
-    reads fastest."""
+    reads fastest.  A fleet [B, ., .] is one launch (B grid rows)."""
     global SLICE_LAUNCHES
     if axis not in (0, 1):
         raise ValueError(f"axis = {axis} must be 0 or 1")
@@ -133,41 +147,52 @@ def hpmm_slice(x, axis: int, gmax: int = 5, kpad: int | None = None):
 
     lib, _ = cuda_build.load("hpmm_slice")
     q = gmax + 1
-    n_keep, k_dim = h.shape[1 - axis], h.shape[axis]
+    fleet = h.ndim - 2
+    batch = h.shape[0] if fleet else 1
+    keep_ax, k_ax = 1 - axis + fleet, axis + fleet
+    n_keep, k_dim = h.shape[keep_ax], h.shape[k_ax]
     kp = _padded_k(k_dim, kpad)
-    out = torch.empty((q, n_keep, kp), dtype=torch.bfloat16, device=h.device)
-    e = torch.empty((n_keep,), dtype=torch.int32, device=h.device)
-    l_strides = (0, 0) if l is None else (l.stride(1 - axis), l.stride(axis))
+    lead = (batch,) if fleet else ()
+    out = torch.empty(lead + (q, n_keep, kp), dtype=torch.bfloat16, device=h.device)
+    e = torch.empty(lead + (n_keep,), dtype=torch.int32, device=h.device)
+
+    def strides(t):
+        return (t.stride(0) if fleet else 0, t.stride(keep_ax), t.stride(k_ax))
+
     with torch.cuda.device(h.device):
         err = lib.hpmm_slice_launch(
             h.data_ptr(), None if l is None else l.data_ptr(),
-            out.data_ptr(), e.data_ptr(), n_keep, k_dim, kp, q,
-            h.stride(1 - axis), h.stride(axis), *l_strides,
+            out.data_ptr(), e.data_ptr(), n_keep, k_dim, kp, q, batch,
+            *strides(h), *((0, 0, 0) if l is None else strides(l)),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"hpmm_slice kernel launch failed: cudaError {err}")
     SLICE_LAUNCHES += 1
     if axis == 1:
-        return out, e.view(n_keep, 1)
-    return out.transpose(1, 2), e.view(1, n_keep)
+        return out, e.view(lead + (n_keep, 1))
+    return out.transpose(-1, -2), e.view(lead + (1, n_keep))
 
 
 def matmul_sliced_ref(a_sl: torch.Tensor, b_sl: torch.Tensor, gmax: int):
     """Plain PyTorch version of the pair accumulation (the JAX package's
     ``_matmul_sliced``): a_sl [q, M, K] bf16, b_sl [q, K, N] bf16, K a
-    multiple of 256.  Returns (Ch, Cl) f32 [M, N] in normalized units."""
-    _, m_dim, k_dim = a_sl.shape
-    n_dim = b_sl.shape[2]
-    ch = torch.zeros((m_dim, n_dim), dtype=torch.float32, device=a_sl.device)
+    multiple of 256, or a fleet of both ([B, q, M, K], [B, q, K, N]).
+    Returns (Ch, Cl) f32 [M, N] ([B, M, N]) in normalized units."""
+    m_dim, k_dim = a_sl.shape[-2:]
+    n_dim = b_sl.shape[-1]
+    ch = torch.zeros(a_sl.shape[:-3] + (m_dim, n_dim), dtype=torch.float32,
+                     device=a_sl.device)
     cl = torch.zeros_like(ch)
     for c0 in range(0, k_dim, _CHUNK):
-        ac = a_sl[:, :, c0:c0 + _CHUNK].to(torch.float32)
-        bc = b_sl[:, c0:c0 + _CHUNK, :].to(torch.float32)
+        ac = a_sl[..., c0:c0 + _CHUNK].to(torch.float32)
+        bc = b_sl[..., c0:c0 + _CHUNK, :].to(torch.float32)
         high = None  # f32 accumulator for pairs with t+u >= 4
         for g in range(gmax + 1):
             for t in range(g + 1):
-                p = ac[t] @ bc[g - t]  # exact: see module docstring
+                # exact in any order (module docstring), so a fleet's
+                # batched product equals its single ones bit for bit
+                p = ac[..., t, :, :] @ bc[..., g - t, :, :]
                 if g <= 3:
                     s, e = dd.two_sum(ch, p)
                     ch, cl = dd.quick_two_sum(s, e + cl)
@@ -197,10 +222,14 @@ def pairs_ref(a_sl, b_sl, gmax, ea=None, eb=None, out_f64=False):
 def _check_slices(a_sl, b_sl, gmax, ea, eb, out_f64):
     if a_sl.dtype != torch.bfloat16 or b_sl.dtype != torch.bfloat16:
         raise TypeError("hpmm_pairs takes bf16 slices")
-    if a_sl.ndim != 3 or b_sl.ndim != 3:
-        raise ValueError("hpmm_pairs takes [q, M, K] and [q, K, N] slices")
-    q, m_dim, k_dim = a_sl.shape
-    if b_sl.shape[0] != q or b_sl.shape[1] != k_dim:
+    if a_sl.ndim not in (3, 4) or b_sl.ndim != a_sl.ndim:
+        raise ValueError("hpmm_pairs takes [q, M, K] and [q, K, N] slices, or a fleet "
+                         "of both ([B, q, M, K] and [B, q, K, N])")
+    q, m_dim, k_dim = a_sl.shape[-3:]
+    if a_sl.shape[:-3] != b_sl.shape[:-3]:
+        raise ValueError(f"fleet sizes of {tuple(a_sl.shape)} and {tuple(b_sl.shape)} disagree")
+    batch = a_sl.shape[0] if a_sl.ndim == 4 else 1
+    if b_sl.shape[-3] != q or b_sl.shape[-2] != k_dim:
         raise ValueError(f"slice shapes {tuple(a_sl.shape)} and {tuple(b_sl.shape)} disagree")
     if k_dim % _CHUNK:
         raise ValueError(f"K = {k_dim} is not a multiple of {_CHUNK}")
@@ -211,9 +240,9 @@ def _check_slices(a_sl, b_sl, gmax, ea, eb, out_f64):
     if (ea is None) != (eb is None) or (out_f64 and ea is None):
         raise ValueError("the scaled forms of hpmm_pairs need both ea and eb")
     if ea is not None:
-        n_dim = b_sl.shape[2]
+        n_dim = b_sl.shape[-1]
         for e, n in ((ea, m_dim), (eb, n_dim)):
-            if e.dtype != torch.int32 or e.numel() != n or e.device != a_sl.device:
+            if e.dtype != torch.int32 or e.numel() != batch * n or e.device != a_sl.device:
                 raise ValueError("ea / eb must be int32 exponents of M / N entries "
                                  "on the slices' device")
 
@@ -230,7 +259,8 @@ def hpmm_pairs(a_sl: torch.Tensor, b_sl: torch.Tensor, gmax: int,
     card both operands must be K-contiguous with 16-byte-aligned rows:
     a_sl as [q, M, K] storage, b_sl as the [q, K, N] view of [q, N, K]
     storage, which is how :func:`hpmm_slice` returns them (row-strided
-    views of either are taken too)."""
+    views of either are taken too).  A fleet ([B, q, M, K] x [B, q, K, N],
+    exponents [B, M, 1] and [B, 1, N]) is one launch with B grid layers."""
     global KERNEL_LAUNCHES
     _check_slices(a_sl, b_sl, gmax, ea, eb, out_f64)
     if a_sl.device.type == "cpu":
@@ -239,36 +269,42 @@ def hpmm_pairs(a_sl: torch.Tensor, b_sl: torch.Tensor, gmax: int,
         raise ValueError(f"hpmm_pairs: unsupported device {a_sl.device}")
     if gmax > _KERNEL_MAX_GMAX:
         raise ValueError(f"the CUDA kernel takes gmax <= {_KERNEL_MAX_GMAX}, got {gmax}")
-    for name, sl, (s_q, s_row, s_k) in (
-        ("a_sl", a_sl, a_sl.stride()),
-        ("b_sl", b_sl, (b_sl.stride(0), b_sl.stride(2), b_sl.stride(1))),
+    fleet = a_sl.ndim == 4
+    sa = a_sl.stride() if fleet else (0,) + a_sl.stride()
+    sb = b_sl.stride() if fleet else (0,) + b_sl.stride()
+    for name, sl, (s_b, s_q, s_row, s_k) in (
+        ("a_sl", a_sl, sa),
+        ("b_sl", b_sl, (sb[0], sb[1], sb[3], sb[2])),
     ):
-        if s_k != 1 or s_q % 8 or s_row % 8 or sl.data_ptr() % 16:
+        if s_k != 1 or s_b % 8 or s_q % 8 or s_row % 8 or sl.data_ptr() % 16:
             raise ValueError(
                 f"the CUDA kernel takes K-contiguous slices with 16-byte-aligned rows "
                 f"(as hpmm_slice returns them); {name} has strides {sl.stride()}")
     from hdsdp_tpu_torch.ops import cuda_build
 
     lib, _ = cuda_build.load("hpmm_pairs")
-    _, m_dim, k_dim = a_sl.shape
-    n_dim = b_sl.shape[2]
+    m_dim, k_dim = a_sl.shape[-2:]
+    n_dim = b_sl.shape[-1]
+    lead = a_sl.shape[:-3]
+    batch = lead[0] if fleet else 1
     dev = a_sl.device
     if out_f64:
-        outs = (torch.empty((m_dim, n_dim), dtype=torch.float64, device=dev),)
+        outs = (torch.empty(lead + (m_dim, n_dim), dtype=torch.float64, device=dev),)
         ptrs = (None, None, outs[0].data_ptr())
     else:
-        outs = (torch.empty((m_dim, n_dim), dtype=torch.float32, device=dev),
-                torch.empty((m_dim, n_dim), dtype=torch.float32, device=dev))
+        outs = (torch.empty(lead + (m_dim, n_dim), dtype=torch.float32, device=dev),
+                torch.empty(lead + (m_dim, n_dim), dtype=torch.float32, device=dev))
         ptrs = (outs[0].data_ptr(), outs[1].data_ptr(), None)
+    sc = outs[0].stride() if fleet else (0,) + outs[0].stride()
     if ea is not None:
-        ea, eb = ea.contiguous(), eb.contiguous()  # views of [M], [N]: no copy
+        # views of [M], [N] (per instance, [B, M], [B, N]): no copy
+        ea, eb = ea.contiguous(), eb.contiguous()
     with torch.cuda.device(dev):
         err = lib.hpmm_pairs_launch(
             a_sl.data_ptr(), b_sl.data_ptr(), *ptrs,
             None if ea is None else ea.data_ptr(),
             None if eb is None else eb.data_ptr(),
-            m_dim, n_dim, k_dim, gmax,
-            *a_sl.stride(), *b_sl.stride(), *outs[0].stride(),
+            m_dim, n_dim, k_dim, gmax, batch, *sa, *sb, *sc,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -280,14 +316,16 @@ def hpmm_pairs(a_sl: torch.Tensor, b_sl: torch.Tensor, gmax: int,
 def slice_operands(a: torch.Tensor, b: torch.Tensor, gmax: int = 5):
     """The prologue of :func:`hpmm`: (a_sl [q, M, Kp], b_sl [q, Kp, N]
     bf16 slices with K zero-padded to a multiple of 256, ea [M, 1] and
-    eb [1, N] power-of-two exponents of the row/column scales)."""
+    eb [1, N] power-of-two exponents of the row/column scales); a fleet
+    gets the leading axis on each."""
     a_sl, ea = hpmm_slice(a, 1, gmax)
     b_sl, eb = hpmm_slice(b, 0, gmax)
     return a_sl, b_sl, ea, eb
 
 
 def hpmm(a: torch.Tensor, b: torch.Tensor, gmax: int = 5) -> torch.Tensor:
-    """f64 a [M, K] @ b [K, N] -> f64 [M, N] through bf16 slices.
+    """f64 a [M, K] @ b [K, N] -> f64 [M, N] through bf16 slices (a fleet
+    [B, M, K] @ [B, K, N] -> [B, M, N] in the same three launches).
 
     Keeps ~48 of f64's 52 mantissa bits; the rescale happens in f64 so
     inputs may use the full f64 exponent range.  NaN propagates to the
@@ -309,7 +347,7 @@ def hpmm_dd(ah, al, bh, bl, gmax: int = 5):
 def hpmm_dd_syrk(ah, al, gmax: int = 5):
     """(Ah+Al) @ (Ah+Al).T -> (Ch, Cl) with a single slice extraction."""
     a_sl, ea = hpmm_slice((ah, al), 1, gmax)
-    return hpmm_pairs(a_sl, a_sl.transpose(1, 2), gmax, ea, ea.view(1, -1))
+    return hpmm_pairs(a_sl, a_sl.transpose(-1, -2), gmax, ea, ea.transpose(-1, -2))
 
 
 def hpmm_slice_a(a: torch.Tensor, gmax: int = 5):
@@ -323,11 +361,12 @@ def hpmm_presliced(a_sl: torch.Tensor, ea: torch.Tensor, b: torch.Tensor,
                    gmax: int = 5) -> torch.Tensor:
     """f64 (pre-sliced a) @ b, the per-product half of :func:`hpmm`; b's
     K pad is made to match the pre-sliced operand's."""
-    b_sl, eb = hpmm_slice(b, 0, gmax, kpad=a_sl.shape[2])
+    b_sl, eb = hpmm_slice(b, 0, gmax, kpad=a_sl.shape[-1])
     return hpmm_pairs(a_sl, b_sl, gmax, ea, eb, out_f64=True)
 
 
 def hpmm_syrk(a: torch.Tensor, gmax: int = 5) -> torch.Tensor:
     """f64 a @ a.T with a single slice extraction."""
     a_sl, ea = hpmm_slice(a, 1, gmax)
-    return hpmm_pairs(a_sl, a_sl.transpose(1, 2), gmax, ea, ea.view(1, -1), out_f64=True)
+    return hpmm_pairs(a_sl, a_sl.transpose(-1, -2), gmax, ea, ea.transpose(-1, -2),
+                      out_f64=True)

@@ -4,6 +4,10 @@ Equivalent to lambda_max of -L^{-1} dS L^{-T} (ref linalg/hdsdp_lanczos.c:
 HLanczosSolve, and the matvec in hdsdp_conic_sdp.c:462-505): the step is
 1 / lambda_max when positive, +inf otherwise.
 
+Every test is batched over the leading axes of L (a fleet's instances
+and their blocks alike): one ``eigh``/``eigvalsh`` call, and so one sync,
+per call whatever the fleet's size.
+
   * exact_ratio_test: batched eigvalsh of the congruence;
   * lanczos_ratio_test(_adaptive): the reference's 30-dim Lanczos with its
     residual-based safeguard (ref hdsdp_lanczos.c:161-292).  The adaptive
@@ -206,6 +210,7 @@ def block_ratio(
 def vector_ratio_test(s: torch.Tensor, ds: torch.Tensor) -> torch.Tensor:
     """Max alpha with s + alpha*ds > 0 elementwise for s > 0, with the
     reference's 100.0 cap when the direction is nonnegative (ref
-    hdsdp_conic_lp.c:215-247, hdsdp_conic_bound.c:157-194)."""
-    ratio = torch.min(ds / s)
+    hdsdp_conic_lp.c:215-247, hdsdp_conic_bound.c:157-194).  s, ds [n],
+    or [N, n] for a fleet (one step per instance)."""
+    ratio = torch.min(ds / s) if s.ndim == 1 else torch.amin(ds / s, dim=-1)
     return torch.where(ratio >= 0.0, 100.0, -1.0 / ratio)

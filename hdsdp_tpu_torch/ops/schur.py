@@ -132,9 +132,90 @@ def gather_table(idx: np.ndarray, n_out: int, keep=None) -> np.ndarray:
 
 def _table_sum(vals: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
     """out[..., o] = sum_k vals[..., tab[o, k]]: a segment sum whose terms
-    are added in the table's order, whatever the device."""
+    are added in the table's order, whatever the device.  A fleet's table
+    is [N, O, k], one per instance, and vals [N, ..., L]."""
     padded = torch.nn.functional.pad(vals, (0, 1))
-    return padded[..., tab].sum(-1)
+    if tab.ndim == 2:
+        return padded[..., tab].sum(-1)
+    n_f, n_out, k = tab.shape
+    mid = padded.shape[1:-1]
+    idx = tab.reshape((n_f,) + (1,) * len(mid) + (n_out * k,))
+    idx = idx.expand(padded.shape[:-1] + (n_out * k,))
+    return torch.gather(padded, -1, idx).reshape(padded.shape[:-1] + (n_out, k)).sum(-1)
+
+
+# ----------------------------------------------------------------------
+# the fleet: N same-shape instances on a leading axis (solver.batch)
+#
+# A fleet's GroupArrays carries one more leading axis on every field, the
+# index fields and tables included (each instance has its own pattern);
+# every function below takes it.  The helpers index per instance; with no
+# fleet they are the plain indexing the single solve has always used.
+# ----------------------------------------------------------------------
+
+
+def is_fleet(ga: GroupArrays) -> bool:
+    """True when ga holds a fleet (C is [N, g, n, n])."""
+    return ga.C.ndim == 4
+
+
+def _fleet_ar(idx: torch.Tensor) -> torch.Tensor:
+    """arange over a fleet's instances, shaped to broadcast against idx."""
+    return torch.arange(idx.shape[0], device=idx.device).reshape(
+        (-1,) + (1,) * (idx.ndim - 1))
+
+
+def _gather_vec(y: torch.Tensor, idx: torch.Tensor, fleet: bool) -> torch.Tensor:
+    """y[idx] for y [L] and an index array, or per instance: y [N, L], idx [N, ...]."""
+    if not fleet:
+        return y[idx]
+    return torch.gather(y, 1, idx.reshape(idx.shape[0], -1)).reshape(idx.shape)
+
+
+def _take_last(x: torch.Tensor, idx: torch.Tensor, fleet: bool) -> torch.Tensor:
+    """x[..., idx] for an index vector, or per instance: x [N, ..., L], idx [N, I]."""
+    if not fleet:
+        return x[..., idx]
+    shape = x.shape[:-1] + idx.shape[-1:]
+    ix = idx.reshape((idx.shape[0],) + (1,) * (x.ndim - 2) + idx.shape[-1:])
+    return torch.gather(x, -1, ix.expand(shape))
+
+
+def _rows(x: torch.Tensor, idx: torch.Tensor, fleet: bool) -> torch.Tensor:
+    """x[idx] along the first axis, or per instance: x [N, L, ...], idx [N, I]."""
+    if not fleet:
+        return x[idx]
+    return x[_fleet_ar(idx), idx]
+
+
+def bcast(x, k: int):
+    """A per-instance scalar of a fleet ([N]) shaped to broadcast against
+    k more axes; a single solve's scalar (0-d or a number) as it is."""
+    if isinstance(x, torch.Tensor) and x.ndim:
+        return x.reshape(x.shape + (1,) * k)
+    return x
+
+
+def _fs_times(ga: GroupArrays, T: torch.Tensor) -> torch.Tensor:
+    """Fs_j T for every slot j: [r, m, n] (a fleet's as one [N, r m, n]
+    product per instance)."""
+    if not is_fleet(ga):
+        return ga.Fs @ T
+    return (ga.Fs.reshape(ga.Fs.shape[0], -1, ga.Fs.shape[-1]) @ T).reshape(ga.Fs.shape)
+
+
+def _trace_sum(U: torch.Tensor) -> torch.Tensor:
+    """Sum of the traces of a stack of matrices [g, n, n] (per instance
+    of a fleet's [N, g, n, n])."""
+    return torch.diagonal(U, dim1=-2, dim2=-1).sum((-2, -1))
+
+
+def _trace(U0: torch.Tensor, fleet: bool) -> torch.Tensor:
+    """tr(U0) of one matrix (one per instance with a fleet).  A fleet
+    takes each instance's trace alone: ``torch.trace`` of a single solve
+    rounds otherwise than a batched diagonal sum, and a fleet member must
+    repeat its solo solve's bits (N launches, not one)."""
+    return torch.stack([torch.trace(u) for u in U0]) if fleet else torch.trace(U0)
 
 
 def with_tables(ga: GroupArrays, m: int) -> GroupArrays:
@@ -181,18 +262,74 @@ def with_tables(ga: GroupArrays, m: int) -> GroupArrays:
     return ga._replace(**tabs)
 
 
+def _table_pad(name: str, ga: GroupArrays) -> int:
+    """The entry with which ``with_tables`` pads a table of ``ga`` (the
+    position of the zero that _table_sum appends; for scell, one cell past
+    the n*n)."""
+    n = ga.C.shape[-1]
+    return {
+        "dtab": lambda: ga.dpos.shape[-1],
+        "stab": lambda: ga.spos.numel() * ga.spos.shape[-1],
+        "scell": lambda: n * n,
+        "ftab": lambda: ga.F.shape[-2],
+        "fall": lambda: ga.seg.numel(),
+        "xtab": lambda: ga.Ad.shape[-3],
+    }[name]()
+
+
+_TABLES = ("dtab", "scell", "stab", "ftab", "fall", "xtab")
+
+
+def stack_groups(gas) -> GroupArrays:
+    """One fleet group from N instances' groups of one bucket and shape:
+    every field stacked on a new leading axis.
+
+    The summation tables come from each instance's own index pattern, so
+    their widths (the largest duplicate count) and the support bucket's
+    number of live cells differ between instances that agree in every
+    other shape: each is padded to the fleet's largest with the entry that
+    ``with_tables`` pads with, which adds nothing (and, in scell, a cell
+    one past the n*n that group_dual drops).  Any other difference of
+    layout or shape raises ValueError."""
+    if len({bucket(ga) for ga in gas}) != 1:
+        raise ValueError("a fleet's groups must share their Schur bucket")
+    fields = {}
+    for name in GroupArrays._fields:
+        vals = [getattr(ga, name) for ga in gas]
+        if all(v is None for v in vals):
+            fields[name] = None
+            continue
+        if any(v is None for v in vals):
+            raise ValueError(f"a fleet's groups disagree in their {name!r} field")
+        if name in _TABLES:
+            pad = _table_pad(name, gas[0])
+            size = [max(v.shape[d] for v in vals) for d in range(vals[0].ndim)]
+            vals = [torch.nn.functional.pad(
+                v, [x for d in reversed(range(v.ndim)) for x in (0, size[d] - v.shape[d])],
+                value=pad) for v in vals]
+        elif any(v.shape != vals[0].shape for v in vals):
+            raise ValueError(f"a fleet's groups disagree in the shape of {name!r}: "
+                             f"{sorted({tuple(v.shape) for v in vals})}")
+        fields[name] = torch.stack(vals)
+    return GroupArrays(**fields)
+
+
 def _slot_quad(ga: GroupArrays, FX: torch.Tensor) -> torch.Tensor:
     """sum_j lams_j * <Fs_j[i], FX_j[i]> per constraint i: [m]."""
-    return torch.sum(ga.lams * torch.sum(FX * ga.Fs, dim=-1), dim=0)
+    return torch.sum(ga.lams * torch.sum(FX * ga.Fs, dim=-1), dim=-2)
 
 
 def _support_quad(ga: GroupArrays, T: torch.Tensor) -> torch.Tensor:
     """sum_j lams_j v_ji' T v_ji per constraint i, from T's entries at
     each eigenvector's support: [m]."""
     P, V = ga.spos, ga.sval
-    Tsup = T[P[:, :, :, None], P[:, :, None, :]]  # [r, m, c, c]
-    q = torch.einsum("jiab,jia,jib->ji", Tsup, V, V)
-    return torch.sum(ga.lams * q, dim=0)
+    if is_fleet(ga):
+        Tsup = T[_fleet_ar(P)[..., None], P[..., :, None], P[..., None, :]]  # [N, r, m, c, c]
+        q = torch.einsum("...jiab,...jia,...jib->...ji", Tsup, V, V)
+    else:
+        Tsup = T[P[:, :, :, None], P[:, :, None, :]]  # [r, m, c, c]
+        q = torch.einsum("jiab,jia,jib->ji", Tsup, V, V)
+    return torch.sum(ga.lams * q, dim=-2)
 
 
 def _quadforms(F: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
@@ -202,80 +339,97 @@ def _quadforms(F: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
 
 def _diag_take(ga: GroupArrays, d: torch.Tensor) -> torch.Tensor:
     """d[..., p_i] per constraint (d itself under the identity map)."""
-    return d if ga.dpos.shape[0] == 0 else d[..., ga.dpos]
+    return d if ga.dpos.shape[-1] == 0 else _take_last(d, ga.dpos, is_fleet(ga))
 
 
 def _lowrank_quad(ga: GroupArrays, T: torch.Tensor, m: int) -> torch.Tensor:
     """<A_i, T_blk> over the low-rank bucket, per constraint: [m]
     (T is [g, n, n] and symmetric)."""
     kind = bucket(ga)
+    T0 = T[..., 0, :, :]
     if kind == "diag":
-        return ga.dw * _diag_take(ga, torch.diagonal(T[0]))
+        return ga.dw * _diag_take(ga, torch.diagonal(T0, dim1=-2, dim2=-1))
     if kind == "support":
-        return _support_quad(ga, T[0])
+        return _support_quad(ga, T0)
     if kind == "slot":
-        return _slot_quad(ga, ga.Fs @ T[0])
-    return _table_sum((ga.lam * _quadforms(ga.F, T)).reshape(-1), ga.fall)
+        return _slot_quad(ga, _fs_times(ga, T0))
+    lead = ga.C.shape[:-3]
+    return _table_sum((ga.lam * _quadforms(ga.F, T)).reshape(lead + (-1,)), ga.fall)
 
 
 def _add_dense(ga: GroupArrays, out: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """out[didx[d]] += vals[d]; didx is unique in a single-block group."""
     if ga.xtab is not None:
         return out + _table_sum(vals, ga.xtab)
+    if is_fleet(ga):
+        return out.scatter_add(-1, ga.didx, vals)
     return out.index_add(0, ga.didx, vals)
 
 
 def group_dual(ga: GroupArrays, dC, scal, y, dEye, hp: bool = False) -> torch.Tensor:
     """Buffer assembly B = dEye*I + scal*(A'y) + dC*C, batched [g,n,n]
-    (ref sdpDenseConeIUpdateBuffer, hdsdp_conic_sdp.c:343-402).
+    (ref sdpDenseConeIUpdateBuffer, hdsdp_conic_sdp.c:343-402).  A fleet
+    takes y [N, m] and per-instance scalars [N] and gives [N, g, n, n].
 
     ``hp`` (generic slot-major groups only) computes W = sum_ja w_ja u_ja
     u_ja^T as one [n, rm] x [rm, n] Ozaki product (ops.hpmm, ~2^-45
     relative), symmetrized."""
     kind = bucket(ga)
-    g, n = ga.C.shape[0], ga.C.shape[-1]
+    fleet = is_fleet(ga)
+    lead = ga.C.shape[:-3]
+    g, n = ga.C.shape[-3], ga.C.shape[-1]
     if kind == "diag":
         wy = ga.dw * y
-        dvec = wy if ga.dpos.shape[0] == 0 else _table_sum(wy, ga.dtab)
-        W = torch.diag(dvec)[None]
+        dvec = wy if ga.dpos.shape[-1] == 0 else _table_sum(wy, ga.dtab)
+        W = torch.diag_embed(dvec)[..., None, :, :]
     elif kind == "support":
         V = ga.sval
-        wy = ga.lams * y[None, :]  # [r, m]
-        vals = (wy[:, :, None, None] * V[:, :, :, None] * V[:, :, None, :]).reshape(-1)
-        W = torch.zeros(n * n, dtype=vals.dtype, device=vals.device)
-        W[ga.scell] = _table_sum(vals, ga.stab)  # scell is unique
-        W = W.reshape(1, n, n)
-    elif kind == "slot":
-        r, m_, _ = ga.Fs.shape
-        w = ga.lams * y[None, :]  # [r, m]
-        Ff = ga.Fs.reshape(r * m_, n)
-        wF = (w[:, :, None] * ga.Fs).reshape(r * m_, n)
-        if hp:
-            Wm = hpmm.hpmm(wF.T, Ff)
-            W = (0.5 * (Wm + Wm.T))[None]
+        wy = ga.lams * y[..., None, :]  # [r, m]
+        vals = (wy[..., None, None] * V[..., :, None] * V[..., None, :]).reshape(lead + (-1,))
+        if fleet:
+            # padded cells of an instance point one past the n*n cells
+            W = torch.zeros(lead + (n * n + 1,), dtype=vals.dtype, device=vals.device)
+            W.scatter_(-1, ga.scell, _table_sum(vals, ga.stab))
+            W = W[..., :n * n].reshape(lead + (1, n, n))
         else:
-            W = (wF.T @ Ff)[None]
+            W = torch.zeros(n * n, dtype=vals.dtype, device=vals.device)
+            W[ga.scell] = _table_sum(vals, ga.stab)  # scell is unique
+            W = W.reshape(1, n, n)
+    elif kind == "slot":
+        r, m_ = ga.Fs.shape[-3], ga.Fs.shape[-2]
+        w = ga.lams * y[..., None, :]  # [r, m]
+        Ff = ga.Fs.reshape(lead + (r * m_, n))
+        wF = (w[..., None] * ga.Fs).reshape(lead + (r * m_, n))
+        if hp:
+            Wm = hpmm.hpmm(wF.mT, Ff)
+            W = (0.5 * (Wm + Wm.mT)).unsqueeze(-3)
+        else:
+            W = (wF.mT @ Ff).unsqueeze(-3)
     else:
-        w = ga.lam * y[ga.seg]  # [g, R]
-        W = (w[:, :, None] * ga.F).mT @ ga.F
-    md = ga.Ad.shape[0]
+        w = ga.lam * _gather_vec(y, ga.seg, fleet)  # [g, R]
+        W = (w[..., None] * ga.F).mT @ ga.F
+    md = ga.Ad.shape[-3]
     if md:
         # sum_d y_d A_d per block as one product (fixed order)
-        yd = y[ga.didx]
-        sel = yd[None, :] if ga.dsel is None else ga.dsel * yd
-        W = W + (sel @ ga.Ad.reshape(md, n * n)).reshape(g, n, n)
+        yd = _gather_vec(y, ga.didx, fleet)
+        sel = yd.unsqueeze(-2) if ga.dsel is None else ga.dsel * yd.unsqueeze(-2)
+        W = W + (sel @ ga.Ad.reshape(lead + (md, n * n))).reshape(lead + (g, n, n))
     eye = torch.eye(n, dtype=W.dtype, device=W.device)
-    return scal * W + dC * ga.C + dEye * eye
+    return bcast(scal, 3) * W + bcast(dC, 3) * ga.C + bcast(dEye, 3) * eye
 
 
 def _dense_congruence(ga: GroupArrays, U: torch.Tensor):
     """B_i = U A_i U for the dense bucket (ref M3, hdsdp_conic_sdp.c:780-851)."""
-    Ub = U[ga.dblk]  # [md, n, n]
+    Ub = _rows(U, ga.dblk, is_fleet(ga))  # [md, n, n]
     return Ub @ ga.Ad @ Ub, Ub
 
 
 def _scatter_rows(didx: torch.Tensor, X: torch.Tensor, m: int) -> torch.Tensor:
-    """[m, k] matrix whose row didx[d] is X[d] (didx unique)."""
+    """[m, k] matrix whose row didx[d] is X[d] (didx unique); per
+    instance for a fleet (didx [N, md], X [N, md, k])."""
+    if didx.ndim == 2:
+        out = torch.zeros(X.shape[:1] + (m,) + X.shape[2:], dtype=X.dtype, device=X.device)
+        return out.scatter_add_(1, didx[:, :, None].expand(X.shape), X)
     out = torch.zeros((m,) + X.shape[1:], dtype=X.dtype, device=X.device)
     return out.index_add_(0, didx, X)
 
@@ -283,7 +437,7 @@ def _scatter_rows(didx: torch.Tensor, X: torch.Tensor, m: int) -> torch.Tensor:
 def _dense_rhs(ga: GroupArrays, U, asinv, trsas):
     """Adds the dense bucket's tr(A_d U) and tr(U A_d U); returns them
     and B = U A_d U (None without a dense bucket)."""
-    if not ga.Ad.shape[0]:
+    if not ga.Ad.shape[-3]:
         return asinv, trsas, None
     B, Ub = _dense_congruence(ga, U)
     asinv = _add_dense(ga, asinv, torch.sum(ga.Ad * Ub, dim=(-1, -2)))
@@ -295,12 +449,16 @@ def _dense_m_single(ga: GroupArrays, B: torch.Tensor, Xc: torch.Tensor, m: int):
     """M terms of a single-block group's dense bucket: dense x dense (all
     pairs interact) and the cross rows Xc[d, i] against the low-rank part
     of constraint i, both symmetric."""
-    md = ga.Ad.shape[0]
-    Mdd = B.reshape(md, -1) @ ga.Ad.reshape(md, -1).T  # [md, md]
-    cols = torch.zeros((md, m), dtype=B.dtype, device=B.device)
-    cols.index_add_(1, ga.didx, Mdd)
+    md = ga.Ad.shape[-3]
+    lead = B.shape[:-3]
+    Mdd = B.reshape(lead + (md, -1)) @ ga.Ad.reshape(lead + (md, -1)).mT  # [md, md]
+    cols = torch.zeros(lead + (md, m), dtype=B.dtype, device=B.device)
+    if is_fleet(ga):
+        cols.scatter_add_(-1, ga.didx[:, None, :].expand(Mdd.shape), Mdd)
+    else:
+        cols.index_add_(1, ga.didx, Mdd)
     Mx = _scatter_rows(ga.didx, Xc, m)
-    return _scatter_rows(ga.didx, cols, m) + Mx + Mx.T
+    return _scatter_rows(ga.didx, cols, m) + Mx + Mx.mT
 
 
 def _slot_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool,
@@ -309,33 +467,36 @@ def _slot_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool,
 
     ``hp`` routes the two large product families (FU = Fs @ U and the pair
     products Fs_j U Fs_k^T) through the Ozaki matmul ops.hpmm (kernel K1
-    on the card); the Hadamard squares, scalings and the dense bucket stay
-    f64."""
-    r, m_, n = ga.Fs.shape
-    U0 = U[0]
+    on the card, a fleet's products as one launch each); the Hadamard
+    squares, scalings and the dense bucket stay f64."""
+    r, m_, n = ga.Fs.shape[-3:]
+    lead = ga.Fs.shape[:-3]
+    U0 = U[..., 0, :, :]
 
     if hp:
-        FU = hpmm.hpmm(ga.Fs.reshape(r * m_, n), U0).reshape(r, m_, n)
+        FU = hpmm.hpmm(ga.Fs.reshape(lead + (r * m_, n)), U0).reshape(ga.Fs.shape)
     else:
-        FU = ga.Fs @ U0  # [r, m, n]
+        FU = _fs_times(ga, U0)  # [r, m, n]
     asinv = _slot_quad(ga, FU)
-    trsas = torch.sum(ga.lams * torch.sum(FU * FU, dim=-1), dim=0)
+    trsas = torch.sum(ga.lams * torch.sum(FU * FU, dim=-1), dim=-2)
     asinv, trsas, B = _dense_rhs(ga, U, asinv, trsas)
 
     M = None
     if with_m:
-        M = torch.zeros((m, m), dtype=U.dtype, device=U.device)
+        M = torch.zeros(lead + (m, m), dtype=U.dtype, device=U.device)
         for j in range(r):
             for k in range(j, r):
-                T = hpmm.hpmm(FU[j], ga.Fs[k].T) if hp else FU[j] @ ga.Fs[k].T
-                T = (ga.lams[j][:, None] * ga.lams[k][None, :]) * (T * T)
-                M = M + T if k == j else M + T + T.T
+                FUj, Fk = FU[..., j, :, :], ga.Fs[..., k, :, :]
+                T = hpmm.hpmm(FUj, Fk.mT) if hp else FUj @ Fk.mT
+                T = (ga.lams[..., j, :, None] * ga.lams[..., k, None, :]) * (T * T)
+                M = M + T if k == j else M + T + T.mT
         if B is not None:
             # dense x low-rank cross: lams_j[a] Fs_j[a]^T B_i Fs_j[a]
-            Xc = torch.stack([_slot_quad(ga, ga.Fs @ Bi) for Bi in B])  # [md, m]
+            Xc = torch.stack([_slot_quad(ga, _fs_times(ga, B[..., d, :, :]))
+                              for d in range(B.shape[-3])], dim=-2)  # [md, m]
             M = M + _dense_m_single(ga, B, Xc, m)
 
-    return SchurOut(M=M, asinv=asinv, trSAS=trsas, trU=torch.trace(U0))
+    return SchurOut(M=M, asinv=asinv, trSAS=trsas, trU=_trace(U0, is_fleet(ga)))
 
 
 def _diag_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool) -> SchurOut:
@@ -349,24 +510,30 @@ def _diag_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool) -> Schur
     M2 rank-one quadforms on 1-nnz eigenvectors, hdsdp_conic_sdp.c:687-778).
     Under the identity map (length-0 dpos) no gather runs.  U need only
     be symmetric (PSDP passes X)."""
-    U0 = U[0]
+    fleet = is_fleet(ga)
+    U0 = U[..., 0, :, :]
     w = ga.dw
-    ident = ga.dpos.shape[0] == 0
+    ident = ga.dpos.shape[-1] == 0
 
-    asinv = w * _diag_take(ga, torch.diagonal(U0))
-    trsas = w * _diag_take(ga, torch.sum(U0 * U0, dim=0))  # diag(U @ U)
+    asinv = w * _diag_take(ga, torch.diagonal(U0, dim1=-2, dim2=-1))
+    trsas = w * _diag_take(ga, torch.sum(U0 * U0, dim=-2))  # diag(U @ U)
     asinv, trsas, B = _dense_rhs(ga, U, asinv, trsas)
 
     M = None
     if with_m:
-        Usub = U0 if ident else U0[ga.dpos][:, ga.dpos]
-        M = (w[:, None] * w[None, :]) * (Usub * Usub)
+        if ident:
+            Usub = U0
+        elif fleet:
+            Usub = U0[_fleet_ar(ga.dpos)[..., None], ga.dpos[:, :, None], ga.dpos[:, None, :]]
+        else:
+            Usub = U0[ga.dpos][:, ga.dpos]
+        M = (w[..., :, None] * w[..., None, :]) * (Usub * Usub)
         if B is not None:
             # dense x diag cross: w_i B_d[p_i, p_i]
-            Xc = w[None, :] * _diag_take(ga, torch.diagonal(B, dim1=-2, dim2=-1))
+            Xc = w.unsqueeze(-2) * _diag_take(ga, torch.diagonal(B, dim1=-2, dim2=-1))
             M = M + _dense_m_single(ga, B, Xc, m)
 
-    return SchurOut(M=M, asinv=asinv, trSAS=trsas, trU=torch.trace(U0))
+    return SchurOut(M=M, asinv=asinv, trSAS=trsas, trU=_trace(U0, fleet))
 
 
 def _support_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool) -> SchurOut:
@@ -376,9 +543,11 @@ def _support_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool) -> Sc
     terms, no [m,n] x [n,m] product (ref sparse pairwise M5 kernels,
     hdsdp_sdpdata.c:1711-1963).  One n^3 product (U @ U) gives the trSAS
     row whatever m is."""
-    U0 = U[0]
+    fleet = is_fleet(ga)
+    lead = ga.C.shape[:-3]
+    U0 = U[..., 0, :, :]
     P, V, w = ga.spos, ga.sval, ga.lams  # [r, m, c], [r, m]
-    r, m_, c = P.shape
+    r, m_, c = P.shape[-3:]
 
     asinv = _support_quad(ga, U0)
     trsas = _support_quad(ga, U0 @ U0)
@@ -389,25 +558,27 @@ def _support_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool) -> Sc
         def pair(j, k):
             # row side gathers rows of U, column side gathers columns of
             # the row-gathered [m, n] block
-            T = torch.zeros((m_, m_), dtype=U.dtype, device=U.device)
+            T = torch.zeros(lead + (m_, m_), dtype=U.dtype, device=U.device)
             for a in range(c):
-                G = U0[P[j, :, a]]  # [m, n]
+                G = _rows(U0, P[..., j, :, a], fleet)  # [m, n]
                 for b in range(c):
-                    T = T + (V[j, :, a, None] * V[k, None, :, b]) * G[:, P[k, :, b]]
+                    T = T + (V[..., j, :, a, None] * V[..., k, None, :, b]) * _take_last(
+                        G, P[..., k, :, b], fleet)
             return T
 
-        M = torch.zeros((m, m), dtype=U.dtype, device=U.device)
+        M = torch.zeros(lead + (m, m), dtype=U.dtype, device=U.device)
         for j in range(r):
             for k in range(j, r):
                 T = pair(j, k)
-                T = (w[j][:, None] * w[k][None, :]) * (T * T)
-                M = M + T if k == j else M + T + T.T
+                T = (w[..., j, :, None] * w[..., k, None, :]) * (T * T)
+                M = M + T if k == j else M + T + T.mT
         if B is not None:
             # dense x support cross: w_ji v' B_d v at each support
-            Xc = torch.stack([_support_quad(ga, Bi) for Bi in B])  # [md, m]
+            Xc = torch.stack([_support_quad(ga, B[..., d, :, :])
+                              for d in range(B.shape[-3])], dim=-2)  # [md, m]
             M = M + _dense_m_single(ga, B, Xc, m)
 
-    return SchurOut(M=M, asinv=asinv, trSAS=trsas, trU=torch.trace(U0))
+    return SchurOut(M=M, asinv=asinv, trSAS=trsas, trU=_trace(U0, fleet))
 
 
 def accumulate_m(ga: GroupArrays, Q: torch.Tensor, m: int) -> torch.Tensor:
@@ -416,48 +587,51 @@ def accumulate_m(ga: GroupArrays, Q: torch.Tensor, m: int) -> torch.Tensor:
     the columns of every block by constraint, then the rows of all blocks
     together, each a fixed-order table sum (the JAX package contracts
     with [g, R, m] one-hot operators instead, O(R^2 m))."""
-    g, R, _ = Q.shape
+    g, R = Q.shape[-3], Q.shape[-2]
+    lead = Q.shape[:-3]
     k = ga.ftab.shape[-1]
-    idx = ga.ftab.reshape(g, 1, m * k).expand(g, R, m * k)
+    idx = ga.ftab.reshape(lead + (g, 1, m * k)).expand(lead + (g, R, m * k))
     Qp = torch.nn.functional.pad(Q, (0, 1))
-    T = torch.gather(Qp, 2, idx).reshape(g, R, m, k).sum(-1)  # [g, R, m]
-    return _table_sum(T.reshape(g * R, m).T, ga.fall).T
+    T = torch.gather(Qp, -1, idx).reshape(lead + (g, R, m, k)).sum(-1)  # [g, R, m]
+    return _table_sum(T.reshape(lead + (g * R, m)).mT, ga.fall).mT
 
 
 def _flat_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool) -> SchurOut:
     """Flat (multi-block) Schur contribution: W = F U F^T per block,
     Q = (lam lam^T) .* W^2 summed into M by constraint; dense coefficients
     interact only within their own block."""
-    g, R, n = ga.F.shape
-    md = ga.Ad.shape[0]
+    fleet = is_fleet(ga)
+    lead = ga.C.shape[:-3]
+    md = ga.Ad.shape[-3]
 
     FU = ga.F @ U  # [g, R, n]
     t_asinv = ga.lam * torch.sum(FU * ga.F, dim=-1)  # lam * u'Uu
     t_trsas = ga.lam * torch.sum(FU * FU, dim=-1)  # lam * ||Uu||^2
-    asinv = _table_sum(t_asinv.reshape(-1), ga.fall)
-    trsas = _table_sum(t_trsas.reshape(-1), ga.fall)
+    asinv = _table_sum(t_asinv.reshape(lead + (-1,)), ga.fall)
+    trsas = _table_sum(t_trsas.reshape(lead + (-1,)), ga.fall)
     asinv, trsas, B = _dense_rhs(ga, U, asinv, trsas)
-    trU = torch.diagonal(U, dim1=-2, dim2=-1).sum()
+    trU = _trace_sum(U)
 
     M = None
     if with_m:
         W = FU @ ga.F.mT  # F U F^T, [g, R, R]
-        Q = (ga.lam[:, :, None] * ga.lam[:, None, :]) * (W * W)
+        Q = (ga.lam[..., :, None] * ga.lam[..., None, :]) * (W * W)
         M = accumulate_m(ga, Q, m)
         if md:
             # dense x dense within the same block
-            same = (ga.dblk[:, None] == ga.dblk[None, :]).to(U.dtype)
-            Mdd = (B.reshape(md, -1) @ ga.Ad.reshape(md, -1).T) * same
-            M = M + _table_sum(_table_sum(Mdd, ga.xtab).T, ga.xtab).T
+            same = (ga.dblk[..., :, None] == ga.dblk[..., None, :]).to(U.dtype)
+            Mdd = (B.reshape(lead + (md, -1)) @ ga.Ad.reshape(lead + (md, -1)).mT) * same
+            M = M + _table_sum(_table_sum(Mdd, ga.xtab).mT, ga.xtab).mT
             # dense x low-rank cross: lam_r * u_r^T B_d u_r, same block
-            cross = ga.lam[ga.dblk] * _quadforms(ga.F[ga.dblk], B)  # [md, R]
+            cross = _rows(ga.lam, ga.dblk, fleet) * _quadforms(
+                _rows(ga.F, ga.dblk, fleet), B)  # [md, R]
             k = ga.ftab.shape[-1]
             cols = torch.gather(
-                torch.nn.functional.pad(cross, (0, 1)), 1,
-                ga.ftab[ga.dblk].reshape(md, m * k),
-            ).reshape(md, m, k).sum(-1)  # [md, m]
-            Mx = _table_sum(cols.T, ga.xtab).T
-            M = M + Mx + Mx.T
+                torch.nn.functional.pad(cross, (0, 1)), -1,
+                _rows(ga.ftab, ga.dblk, fleet).reshape(lead + (md, m * k)),
+            ).reshape(lead + (md, m, k)).sum(-1)  # [md, m]
+            Mx = _table_sum(cols.mT, ga.xtab).mT
+            M = M + Mx + Mx.mT
 
     return SchurOut(M=M, asinv=asinv, trSAS=trsas, trU=trU)
 
@@ -465,7 +639,8 @@ def _flat_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool) -> Schur
 def group_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool = True,
                 hp: bool = False) -> SchurOut:
     """Schur contribution of one group given U = S^-1 [g,n,n] (or, for
-    PSDP, any symmetric U).  ``hp`` reaches the generic slot-major bucket
+    PSDP, any symmetric U); a fleet's U is [N, g, n, n] and its outputs
+    carry the leading axis.  ``hp`` reaches the generic slot-major bucket
     only; the gather buckets and the flat layout ignore it."""
     kind = bucket(ga)
     if kind == "diag":
@@ -481,9 +656,9 @@ def group_hsd(ga: GroupArrays, U: torch.Tensor, m: int) -> HSDOut:
     """Self-dual embedding components (ref sdpDenseConeIGetHSDComponents,
     hdsdp_conic_sdp.c:987-1033), via the dense-C M3 path."""
     T = U @ ga.C @ U  # U C U
-    csinv = torch.sum(ga.C * U)
-    csinvcsinv = torch.sum(ga.C * T)
-    trUCU = torch.diagonal(T, dim1=-2, dim2=-1).sum()
+    csinv = torch.sum(ga.C * U, dim=(-3, -2, -1))
+    csinvcsinv = torch.sum(ga.C * T, dim=(-3, -2, -1))
+    trUCU = _trace_sum(T)
     return HSDOut(
         asinvcsinv=group_atx(ga, T, m), csinv=csinv, csinvcsinv=csinvcsinv,
         trUCU=trUCU,
@@ -493,8 +668,9 @@ def group_hsd(ga: GroupArrays, U: torch.Tensor, m: int) -> HSDOut:
 def group_atx(ga: GroupArrays, X: torch.Tensor, m: int) -> torch.Tensor:
     """A(X): per-constraint traces <A_i, X_blk> given symmetric X [g,n,n]."""
     out = _lowrank_quad(ga, X, m)
-    if ga.Ad.shape[0]:
-        out = _add_dense(ga, out, torch.sum(ga.Ad * X[ga.dblk], dim=(-1, -2)))
+    if ga.Ad.shape[-3]:
+        out = _add_dense(ga, out, torch.sum(ga.Ad * _rows(X, ga.dblk, is_fleet(ga)),
+                                            dim=(-1, -2)))
     return out
 
 
@@ -663,17 +839,29 @@ class LPArrays(NamedTuple):
     c: torch.Tensor  # [nlp]
 
 
+def _lp_mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A @ v, per instance for a fleet (A [N, m, nlp], v [N, nlp])."""
+    return A @ v if A.ndim == 2 else (A @ v[..., None])[..., 0]
+
+
+def _lp_sum(x: torch.Tensor) -> torch.Tensor:
+    return torch.sum(x) if x.ndim == 1 else torch.sum(x, dim=-1)
+
+
 def lp_dual(lp: LPArrays, dC, scal, y, dEye) -> torch.Tensor:
-    """s = dEye*1 + scal*(A'y) + dC*c."""
-    return dEye + scal * (y @ lp.A) + dC * lp.c
+    """s = dEye*1 + scal*(A'y) + dC*c (a fleet: y [N, m], scalars [N])."""
+    if lp.A.ndim == 2:
+        return dEye + scal * (y @ lp.A) + dC * lp.c
+    aty = (y[..., None, :] @ lp.A)[..., 0, :]
+    return bcast(dEye, 1) + bcast(scal, 1) * aty + bcast(dC, 1) * lp.c
 
 
 def lp_schur(lp: LPArrays, s: torch.Tensor, m: int, with_m: bool = True) -> SchurOut:
     si = 1.0 / s
-    asinv = lp.A @ si
-    trsas = lp.A @ (si * si)
-    M = (lp.A * (si * si)[None, :]) @ lp.A.T if with_m else None
-    return SchurOut(M=M, asinv=asinv, trSAS=trsas, trU=torch.sum(si))
+    asinv = _lp_mv(lp.A, si)
+    trsas = _lp_mv(lp.A, si * si)
+    M = (lp.A * (si * si)[..., None, :]) @ lp.A.mT if with_m else None
+    return SchurOut(M=M, asinv=asinv, trSAS=trsas, trU=_lp_sum(si))
 
 
 def lp_hsd(lp: LPArrays, s: torch.Tensor, m: int) -> HSDOut:
@@ -682,10 +870,10 @@ def lp_hsd(lp: LPArrays, s: torch.Tensor, m: int) -> HSDOut:
     # NOTE: the reference omits the LP CSinvRdSinv term
     # (ref hdsdp_conic_lp.c:315-327); reproduced here.
     return HSDOut(
-        asinvcsinv=lp.A @ (lp.c * si * si),
-        csinv=torch.sum(csi),
-        csinvcsinv=torch.sum(csi * csi),
-        trUCU=torch.zeros((), dtype=s.dtype, device=s.device),
+        asinvcsinv=_lp_mv(lp.A, lp.c * si * si),
+        csinv=_lp_sum(csi),
+        csinvcsinv=_lp_sum(csi * csi),
+        trUCU=torch.zeros(s.shape[:-1], dtype=s.dtype, device=s.device),
     )
 
 

@@ -92,6 +92,19 @@ def groups_from_numpy(groups, lp, device, m: Optional[int] = None):
 # ----------------------------------------------------------------------
 
 
+# Every function below also takes a FLEET (solver.batch): groups whose
+# fields carry a leading axis of N same-shape instances (ops.schur), y
+# [N, m], buffers [N, g, n, n], LP slacks [N, nlp] and per-instance
+# scalars [N]; what it returns carries the same axis, and nothing is ever
+# summed or reduced across instances.
+
+
+def _lead(S, s_lp) -> tuple:
+    """A fleet's leading axis (N,), or () for a single solve: buffers are
+    [g, n, n] per instance, LP slacks [nlp]."""
+    return tuple(S[0].shape[:-3]) if S else tuple(s_lp.shape[:-1])
+
+
 def assemble(groups, lp, dC, scal, y, dEye, hp: bool = False):
     S = tuple(schur_ops.group_dual(ga, dC, scal, y, dEye, hp=hp) for ga in groups)
     s_lp = schur_ops.lp_dual(lp, dC, scal, y, dEye) if lp is not None else None
@@ -99,15 +112,17 @@ def assemble(groups, lp, dC, scal, y, dEye, hp: bool = False):
 
 
 def factor(S, s_lp):
-    """(ok, L): ok is a 0-dim bool tensor (not yet read on the host)."""
+    """(ok, L): ok is a 0-dim bool tensor (not yet read on the host), or
+    one per instance of a fleet."""
+    lead = _lead(S, s_lp) if (S or s_lp is not None) else ()
     Ls = []
     ok = None
     for Sg in S:
-        good, L = chol_ops.psd_check(Sg)
+        good, L = chol_ops.psd_check(Sg, lead)
         Ls.append(L)
         ok = good if ok is None else ok & good
     if s_lp is not None:
-        good = torch.all(s_lp > 0)
+        good = torch.all(s_lp > 0, dim=-1)
         ok = good if ok is None else ok & good
     if ok is None:
         ok = torch.ones((), dtype=torch.bool)
@@ -115,11 +130,12 @@ def factor(S, s_lp):
 
 
 def logdet(L, s_lp):
+    lead = _lead(L, s_lp) if (L or s_lp is not None) else ()
     val = 0.0
     for Lg in L:
-        val = val + chol_ops.chol_logdet(Lg)
+        val = val + chol_ops.chol_logdet(Lg, lead)
     if s_lp is not None:
-        val = val + torch.sum(torch.log(s_lp))
+        val = val + torch.sum(torch.log(s_lp), dim=-1)
     return val
 
 
@@ -133,14 +149,16 @@ def _kkt_terms(groups, lp, Us, s_lp, Rd, m: int, kind: str, with_m: bool,
     """The KKT sums over (group, U) pairs and the LP cone.  ``Us`` may be
     a generator, so that a dense build holds one inverse at a time."""
     dt, dev = (s_lp.dtype, s_lp.device) if not groups else (groups[0].C.dtype, groups[0].C.device)
-    M = torch.zeros((m, m), dtype=dt, device=dev) if with_m else None
-    asinv = torch.zeros((m,), dtype=dt, device=dev)
-    trsas = torch.zeros((m,), dtype=dt, device=dev)
-    tr_u = torch.zeros((), dtype=dt, device=dev)
-    asinvcsinv = torch.zeros((m,), dtype=dt, device=dev) if kind == "hsd" else None
-    csinv = torch.zeros((), dtype=dt, device=dev)
-    csinvcsinv = torch.zeros((), dtype=dt, device=dev)
-    csinvrdsinv = torch.zeros((), dtype=dt, device=dev)
+    # a fleet's sums carry its leading axis
+    lead = s_lp.shape[:-1] if not groups else groups[0].C.shape[:-3]
+    M = torch.zeros(lead + (m, m), dtype=dt, device=dev) if with_m else None
+    asinv = torch.zeros(lead + (m,), dtype=dt, device=dev)
+    trsas = torch.zeros(lead + (m,), dtype=dt, device=dev)
+    tr_u = torch.zeros(lead, dtype=dt, device=dev)
+    asinvcsinv = torch.zeros(lead + (m,), dtype=dt, device=dev) if kind == "hsd" else None
+    csinv = torch.zeros(lead, dtype=dt, device=dev)
+    csinvcsinv = torch.zeros(lead, dtype=dt, device=dev)
+    csinvrdsinv = torch.zeros(lead, dtype=dt, device=dev)
 
     for ga, U in zip(groups, Us):
         out = schur_ops.group_schur(ga, U, m, with_m=with_m, hp=hp)
@@ -174,7 +192,7 @@ def _kkt_terms(groups, lp, Us, s_lp, Rd, m: int, kind: str, with_m: bool,
     return KKTOut(
         M=M,
         asinv=asinv,
-        asinvrdsinv=Rd * trsas,
+        asinvrdsinv=schur_ops.bcast(Rd, 1) * trsas,
         asinvcsinv=asinvcsinv,
         csinv=csinv,
         csinvcsinv=csinvcsinv,
@@ -343,9 +361,9 @@ def interior_check(groups, lp, dC, scal, y, dEye, tau, lo, up, hp: bool = False)
     one bool tensor, so the caller reads both with one host sync."""
     S, s_lp = assemble(groups, lp, dC, scal, y, dEye, hp=hp)
     ok, L = factor(S, s_lp)
-    sl = y - tau * lo
-    su = tau * up - y
-    bok = torch.all(sl > 0) & torch.all(su > 0)
+    sl = y - schur_ops.bcast(tau * lo, 1)
+    su = schur_ops.bcast(tau * up, 1) - y
+    bok = torch.all(sl > 0, dim=-1) & torch.all(su > 0, dim=-1)
     flags = torch.stack([ok.to(bok.device), bok])
     return S, s_lp, L, sl, su, flags
 

@@ -51,6 +51,16 @@ Cholesky here is ``cholesky_ex`` (no sync); nothing indexes by a mask.
 
 Every phase launch starts from and ends in the ``DualIPM`` (prologues,
 PSDP and the final DIMACS check are its host code), as in the JAX package.
+
+The same bodies run a FLEET of same-shape solves (solver.batch, where the
+JAX package vmaps its raw phase programs): every tensor then carries a
+leading instance axis, each decision above reads one flag per instance in
+the same single host read, and ``_cond``/``_while``/``_repeat`` do what
+vmap does to lax.cond and lax.while_loop (a split runs both branches and
+merges per instance; a loop freezes the instances that are done).  A
+single solve's decisions are unanimous, so it runs the same operations as
+it always has.
+
 What the JAX module needs for XLA and the port does not: the program
 builders ``make_phase_a``/``make_phase_b``/``make_hsd`` with their cache
 and keys (here both modes drive the same body with ``_drive``), buffer
@@ -64,6 +74,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -73,6 +84,7 @@ import torch
 from hdsdp_tpu_torch.ops import cg as cg_ops
 from hdsdp_tpu_torch.ops import chol as chol_ops
 from hdsdp_tpu_torch.ops import ratio as ratio_ops
+from hdsdp_tpu_torch.ops import schur as schur_ops
 from hdsdp_tpu_torch.solver import cones as cone_ops
 
 INF = 1e30
@@ -117,7 +129,13 @@ class Config:
 
 @dataclass
 class Cones(_Tree):
-    """Cone data of one solve, its Config, and the count of host reads."""
+    """Cone data of one solve, its Config, and the count of host reads.
+
+    A FLEET (solver.batch) is N same-shape solves at once: every tensor of
+    Cones, Pars and State then carries a leading axis of N instances (the
+    groups' index fields and summation tables too, ops.schur), ``fleet``
+    is N, and ``live`` is the host mask of the instances whose results the
+    current region keeps (see ``_cond``)."""
 
     groups: tuple
     lp: Optional[object]
@@ -126,10 +144,15 @@ class Cones(_Tree):
     bound_up: torch.Tensor
     cfg: Config
     n_reads: int = 0
+    fleet: int = 0
+    # KKT builds by kind (build_kkt calls): the fleet's accounting
+    n_builds: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
-        self.yes = torch.ones((), dtype=torch.bool, device=self.b.device)
-        self.no = torch.zeros((), dtype=torch.bool, device=self.b.device)
+        lead = (self.fleet,) if self.fleet else ()
+        self.yes = torch.ones(lead, dtype=torch.bool, device=self.b.device)
+        self.no = torch.zeros(lead, dtype=torch.bool, device=self.b.device)
+        self.live = np.ones(self.fleet, dtype=bool) if self.fleet else True
 
 
 @dataclass
@@ -187,16 +210,26 @@ class State(_Tree):
     lz: Tuple[torch.Tensor, ...]
 
 
-def _read(c: Cones, flag: torch.Tensor) -> bool:
-    """One host read of a device flag (a decision point)."""
+def _read(c: Cones, flag: torch.Tensor):
+    """One host read of a device flag (a decision point): a bool, or for a
+    fleet the flag of every instance (a numpy bool array), in one copy."""
     c.n_reads += 1
+    if c.fleet:
+        return flag.cpu().numpy().astype(bool)
     return bool(flag)
 
 
 def _read_all(c: Cones, *xs):
-    """Several device flags or scalars in one host read."""
+    """Several device flags or scalars in one host read (for a fleet, one
+    numpy row of N values each)."""
     c.n_reads += 1
-    return torch.stack([x.to(torch.float64) for x in xs]).tolist()
+    vals = torch.stack([x.to(torch.float64) for x in xs])
+    return list(vals.cpu().numpy()) if c.fleet else vals.tolist()
+
+
+def _h(v):
+    """A value of ``_read_all`` as a decision: a bool (a bool array)."""
+    return v != 0
 
 
 def _i32(flag: torch.Tensor) -> torch.Tensor:
@@ -205,6 +238,145 @@ def _i32(flag: torch.Tensor) -> torch.Tensor:
 
 def _f64(flag: torch.Tensor) -> torch.Tensor:
     return flag.to(torch.float64)
+
+
+# ----------------------------------------------------------------------
+# masked control flow: what ``jax.vmap`` makes of the JAX program's
+# lax.cond and lax.while_loop.  A decision reads one flag per instance
+# (one host read for the whole fleet).  Where every live instance agrees,
+# only their branch runs, as in a single solve; where they disagree, both
+# branches run, each with the other instances masked out of its own
+# decisions, and the results are merged per instance with torch.where.
+# A loop steps while any live instance continues and freezes the others.
+# With one solve (no fleet) every decision is unanimous: the same torch
+# operations run as before, in the same order.
+# ----------------------------------------------------------------------
+
+
+def _any(c: Cones, h) -> bool:
+    """Does some live instance take the decision h?"""
+    return bool(np.any(np.logical_and(h, c.live)))
+
+
+def _all(c: Cones, h) -> bool:
+    """Does every live instance take the decision h?"""
+    return bool(np.all(np.logical_or(h, np.logical_not(c.live))))
+
+
+@contextmanager
+def _narrow(c: Cones, h):
+    """Within the block, only the live instances that take h are live."""
+    saved = c.live
+    c.live = np.logical_and(saved, h)
+    try:
+        yield
+    finally:
+        c.live = saved
+
+
+def _where(flag, a, b):
+    """torch.where with a per-instance flag ([N]) broadcast over the
+    trailing axes of the operands; a single solve's 0-d flag as it is."""
+    if isinstance(flag, torch.Tensor) and flag.ndim:
+        nd = max(x.ndim if isinstance(x, torch.Tensor) else 0 for x in (a, b))
+        flag = flag.reshape(flag.shape + (1,) * (nd - flag.ndim))
+    return torch.where(flag, a, b)
+
+
+def _tree_where(mask: torch.Tensor, new, old):
+    if new is old:
+        return new
+    if isinstance(new, torch.Tensor) or isinstance(old, torch.Tensor):
+        return _where(mask, new, old)
+    if isinstance(new, tuple):
+        return tuple(_tree_where(mask, a, b) for a, b in zip(new, old))
+    if dataclasses.is_dataclass(new):
+        return dataclasses.replace(new, **{
+            f.name: _tree_where(mask, getattr(new, f.name), getattr(old, f.name))
+            for f in dataclasses.fields(new)})
+    if new == old:
+        return new
+    raise TypeError(f"cannot merge {new!r} and {old!r} per instance")
+
+
+def _select(c: Cones, h, new, old):
+    """Per instance, the tree ``new`` where h holds and ``old`` elsewhere
+    (the select vmap makes of a batched cond or while_loop); no device
+    work where every live instance agrees."""
+    if _all(c, h):
+        return new
+    if not _any(c, h):
+        return old
+    return _tree_where(torch.as_tensor(h, device=c.b.device), new, old)
+
+
+def _cond(c: Cones, h, true_fn, false_fn):
+    """lax.cond on the decision h (already read)."""
+    if _all(c, h):
+        return true_fn()
+    if not _any(c, h):
+        return false_fn()
+    with _narrow(c, h):
+        a = true_fn()
+    with _narrow(c, np.logical_not(h)):
+        b = false_fn()
+    return _select(c, h, a, b)
+
+
+def _while(c: Cones, cond_fn, body_fn, carry):
+    """lax.while_loop: one read of cond_fn(carry) before every trip."""
+    while True:
+        h = _read(c, cond_fn(carry))
+        if not _any(c, h):
+            return carry
+        with _narrow(c, h):
+            new = body_fn(carry)
+        carry = _select(c, h, new, carry)
+
+
+def _repeat(c: Cones, trip, carry, n_max: int):
+    """A do-while of at most n_max trips: trip(carry) -> (carry, done flag).
+    Every live instance takes the first trip, those not done the next;
+    one read of the flag after every trip but the last."""
+    carry, done = trip(carry)
+    todo = True
+    for _ in range(1, n_max):
+        todo = np.logical_and(todo, np.logical_not(_read(c, done)))
+        if not _any(c, todo):
+            break
+        with _narrow(c, todo):
+            new, done = trip(carry)
+        carry = _select(c, todo, new, carry)
+    return carry
+
+
+# per-instance reductions and broadcasts (one solve: the plain reduction)
+
+
+def _lead(c: Cones) -> tuple:
+    return (c.fleet,) if c.fleet else ()
+
+
+def _v(x):
+    """A per-instance scalar against vectors (ops.schur.bcast)."""
+    return schur_ops.bcast(x, 1)
+
+
+def _dot(c: Cones, a, b):
+    """a . b.  A fleet takes each instance's dot alone: the BLAS dot of a
+    single solve has no batched form that rounds as it does, and a fleet
+    member must repeat its solo solve's bits (N launches, not one)."""
+    if not c.fleet:
+        return a @ b
+    return torch.stack([x @ y for x, y in zip(*torch.broadcast_tensors(a, b))])
+
+
+def _vmin(c: Cones, x):
+    return x.reshape(_lead(c) + (-1,)).amin(-1)
+
+
+def _vmax(c: Cones, x):
+    return x.reshape(_lead(c) + (-1,)).amax(-1)
 
 
 # ----------------------------------------------------------------------
@@ -230,9 +402,10 @@ def cone_ratio(c: Cones, L, s_lp, dS, ds_lp, lz):
     (ref hdsdp_lanczos.c:166-178 dLanczosWarmStart): each Lanczos group
     starts from the previous call's top Ritz image (plus the anti-
     stagnation perturbation applied inside block_ratio) and runs a
-    reduced fixed depth.  Returns (step, new_lz)."""
+    reduced fixed depth.  Returns (step, new_lz): one step per instance
+    of a fleet, from one batched test over all of them."""
     cfg = c.cfg
-    step = c.b.new_full((), INF)
+    step = c.b.new_full(_lead(c), INF)
     new_lz = []
     for gi, (Lg, dSg) in enumerate(zip(L, dS)):
         if cfg.kwarm > 0:
@@ -245,7 +418,7 @@ def cone_ratio(c: Cones, L, s_lp, dS, ds_lp, lz):
             steps = ratio_ops.block_ratio(Lg, dSg, mode=cfg.ratio_mode,
                                           krylov=cfg.krylov, nan_safe=True)
             new_lz.append(lz[gi])
-        step = torch.minimum(step, torch.min(steps))
+        step = torch.minimum(step, _vmin(c, steps))
     if c.lp is not None:
         step = torch.minimum(step, ratio_ops.vector_ratio_test(s_lp, ds_lp))
     return step, tuple(new_lz)
@@ -253,7 +426,8 @@ def cone_ratio(c: Cones, L, s_lp, dS, ds_lp, lz):
 
 def build_kkt(c: Cones, L, s_lp, Rd, kind: str) -> cone_ops.KKTOut:
     """Mirror of cones._build_kkt (kind in {"inf", "hsd", "corr"})."""
-    return cone_ops.build_kkt(c.groups, c.lp, L, s_lp, Rd, c.b.shape[0], kind,
+    c.n_builds[kind] = c.n_builds.get(kind, 0) + 1
+    return cone_ops.build_kkt(c.groups, c.lp, L, s_lp, Rd, c.b.shape[-1], kind,
                               hp=c.cfg.hp)
 
 
@@ -269,16 +443,25 @@ def _factor_m_f64(c: Cones, M):
     """Cholesky with the regularization ladder (algo.factor_kkt): up to
     six rungs base * 100^k, base = 1e-14 max(diag M) + 1e-300; the first
     rung that factors wins, else the failed (NaN) factor and ok False."""
-    ok, L = chol_ops.psd_check(M)
-    if _read(c, ok):
+    ok, L = chol_ops.psd_check(M, _lead(c))
+    h = _read(c, ok)
+    if _all(c, h):
         return L, ok
-    base = torch.max(torch.diagonal(M)) * 1e-14 + 1e-300
-    eye = torch.eye(M.shape[0], dtype=M.dtype, device=M.device)
-    for k in range(6):
-        okr, Lr = chol_ops.psd_check(M + (base * (10.0 ** (2 * k))) * eye)
-        if _read(c, okr):
-            return Lr, okr
-    return L, c.no
+    base = _vmax(c, torch.diagonal(M, dim1=-2, dim2=-1)) * 1e-14 + 1e-300
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    out = (L, c.no)
+    with _narrow(c, np.logical_not(h)):
+        todo = True
+        for k in range(6):
+            okr, Lr = chol_ops.psd_check(
+                M + schur_ops.bcast(base * (10.0 ** (2 * k)), 2) * eye, _lead(c))
+            hr = _read(c, okr)
+            with _narrow(c, todo):
+                out = _select(c, hr, (Lr, okr), out)
+            todo = np.logical_and(todo, np.logical_not(hr))
+            if not _any(c, todo):
+                break
+    return _select(c, h, (L, ok), out)
 
 
 def _factor_m_mp(c: Cones, M):
@@ -321,15 +504,16 @@ def solve_m(c: Cones, Lm, rhs):
 
 
 def bound_slacks(c: Cones, tau, y):
-    return y - tau * c.bound_lo, tau * c.bound_up - y
+    return y - _v(tau * c.bound_lo), _v(tau * c.bound_up) - y
 
 
 def bound_ratio(sl, su, dsl, dsu):
-    return ratio_ops.vector_ratio_test(torch.cat([sl, su]), torch.cat([dsl, dsu]))
+    return ratio_ops.vector_ratio_test(torch.cat([sl, su], dim=-1),
+                                       torch.cat([dsl, dsu], dim=-1))
 
 
 def _where_opt(flag, a, b):
-    return None if a is None else torch.where(flag, a, b)
+    return None if a is None else _where(flag, a, b)
 
 
 def check_interior(c: Cones, st: State, tau, y, with_bound=True):
@@ -337,86 +521,87 @@ def check_interior(c: Cones, st: State, tau, y, with_bound=True):
     S, s_lp = assemble(c, tau, -1.0, y, -st.Rd + st.perturb)
     ok, L = factor(c, S, s_lp)
     st = st._replace(
-        S=tuple(torch.where(ok, a, b) for a, b in zip(S, st.S)),
-        L=tuple(torch.where(ok, a, b) for a, b in zip(L, st.L)),
+        S=tuple(_where(ok, a, b) for a, b in zip(S, st.S)),
+        L=tuple(_where(ok, a, b) for a, b in zip(L, st.L)),
         s_lp=_where_opt(ok, s_lp, st.s_lp),
     )
     interior = ok
     if with_bound:
         sl, su = bound_slacks(c, tau, y)
-        bok = torch.all(sl > 0) & torch.all(su > 0)
-        st = st._replace(sl=torch.where(bok, sl, st.sl), su=torch.where(bok, su, st.su))
+        bok = (sl > 0).all(-1) & (su > 0).all(-1)
+        st = st._replace(sl=_where(bok, sl, st.sl), su=_where(bok, su, st.su))
         interior = interior & bok
     return interior, st
 
 
 def set_step(c: Cones, st: State, dtau, dy, gamma):
     dS, ds_lp = assemble(c, dtau, -1.0, dy, gamma * st.Rd)
-    dsu = dtau * c.bound_up - dy
-    dsl = dy - dtau * c.bound_lo
+    dsu = _v(dtau * c.bound_up) - dy
+    dsl = dy - _v(dtau * c.bound_lo)
     return dS, ds_lp, dsl, dsu
 
 
 def add_step_to_checker(c: Cones, st: State, dS, ds_lp, dsl, dsu, alpha):
     """algo.add_step_to_checker (checker := dualvar + alpha*step, PSD check)."""
-    S_new = tuple(Sg + alpha * dSg for Sg, dSg in zip(st.S, dS))
-    s_new = st.s_lp + alpha * ds_lp if c.lp is not None else None
+    S_new = tuple(Sg + schur_ops.bcast(alpha, 3) * dSg for Sg, dSg in zip(st.S, dS))
+    s_new = st.s_lp + _v(alpha) * ds_lp if c.lp is not None else None
     ok, Lnew = factor(c, S_new, s_new)
-    sl = st.sl + alpha * dsl
-    su = st.su + alpha * dsu
+    sl = st.sl + _v(alpha) * dsl
+    su = st.su + _v(alpha) * dsu
     st = st._replace(Schk=S_new, s_lp_chk=s_new, Lchk=Lnew, sl_chk=sl, su_chk=su)
-    return ok & torch.all(sl > 0) & torch.all(su > 0), st
+    return ok & (sl > 0).all(-1) & (su > 0).all(-1), st
 
 
 def logdet_cur(c: Cones, st: State):
     """algo.logdet_cur (negated barrier at DUALVAR)."""
     val = logdet(c, st.L, st.s_lp)
-    return -(val + torch.sum(torch.log(st.sl)) + torch.sum(torch.log(st.su)))
+    return -(val + torch.log(st.sl).sum(-1) + torch.log(st.su).sum(-1))
 
 
 def _maker_where(flag, a: Maker, b: Maker) -> Maker:
-    return Maker(mu=torch.where(flag, a.mu, b.mu), y=torch.where(flag, a.y, b.y),
-                 dy=torch.where(flag, a.dy, b.dy))
+    return Maker(mu=torch.where(flag, a.mu, b.mu), y=_where(flag, a.y, b.y),
+                 dy=_where(flag, a.dy, b.dy))
 
 
 def prox_measure(c: Cones, p: Pars, st: State, kkt, d1, d2, which_infeas: bool):
     """algo.prox_measure — returns (p_obj_type in {-1,0,1} as int32, st)."""
     asinv, asinvrdsinv, trace_sinv = kkt.asinv, kkt.asinvrdsinv, kkt.trace_sinv
     mu = st.mu
-    dy1 = d1 / mu - d2
-    v2 = c.b / mu - asinv
-    prox2 = dy1 @ v2
+    dy1 = d1 / _v(mu) - d2
+    v2 = c.b / _v(mu) - asinv
+    prox2 = _dot(c, dy1, v2)
     pos = prox2 >= 0.0
 
     prox_norm = torch.where(pos, torch.sqrt(torch.clamp(prox2, min=0.0)), 1.0)
     vec = dy1 - st.y
-    su_b = c.bound_up + vec
-    sl_b = -c.bound_lo - vec
-    bound_ok = torch.all(sl_b > 0) & torch.all(su_b > 0)
+    su_b = _v(c.bound_up) + vec
+    sl_b = -_v(c.bound_lo) - vec
+    bound_ok = (sl_b > 0).all(-1) & (su_b > 0).all(-1)
 
     # expert check (checker := -Rd*I + A'vec + C), run only when needed
-    if _read(c, pos & bound_ok):
+    def expert():
         S, s_lp = assemble(c, 1.0, 1.0, vec, -st.Rd + st.perturb)
         okc, Lc = factor(c, S, s_lp)
-        Schk, s_lp_chk, Lchk = S, s_lp, Lc
-    else:
-        okc, Schk, s_lp_chk, Lchk = c.no, st.Schk, st.s_lp_chk, st.Lchk
+        return okc, S, s_lp, Lc
+
+    okc, Schk, s_lp_chk, Lchk = _cond(c, _read(c, pos & bound_ok), expert,
+                                      lambda: (c.no, st.Schk, st.s_lp_chk, st.Lchk))
     feas = pos & bound_ok & okc
 
     if which_infeas:
-        rel_gap = dy1 @ (asinvrdsinv + asinv) + trace_sinv * st.Rd
+        rel_gap = _dot(c, dy1, asinvrdsinv + asinv) + trace_sinv * st.Rd
     else:
-        rel_gap = dy1 @ asinv
+        rel_gap = _dot(c, dy1, asinv)
     rel_gap = rel_gap + p.all_cone_dims
     p_obj_new = st.d_obj_internal + rel_gap * mu
 
     # primal infeasibility estimate via the bound cone
     d = -dy1
-    slc = st.y - c.bound_lo
-    suc = c.bound_up - st.y
-    xl = mu * (1.0 / slc - d / (slc * slc))
-    xu = mu * (1.0 / suc + d / (suc * suc))
-    p_inf = torch.max(torch.abs(xu - xl))
+    slc = st.y - _v(c.bound_lo)
+    suc = _v(c.bound_up) - st.y
+    xl = _v(mu) * (1.0 / slc - d / (slc * slc))
+    xu = _v(mu) * (1.0 / suc + d / (suc * suc))
+    p_inf = _vmax(c, torch.abs(xu - xl))
     p_inf = torch.where(p_inf < 1e-16, 0.0, p_inf)
 
     inacc_tol = 1e-04
@@ -432,8 +617,8 @@ def prox_measure(c: Cones, p: Pars, st: State, kkt, d1, d2, which_infeas: bool):
     p_obj_type = _i32(good) - _i32(feas & (rel_gap < -1.0))
     st = st._replace(
         prox_norm=prox_norm,
-        sl_chk=torch.where(pos, sl_b, st.sl_chk),
-        su_chk=torch.where(pos, su_b, st.su_chk),
+        sl_chk=_where(pos, sl_b, st.sl_chk),
+        su_chk=_where(pos, su_b, st.su_chk),
         Schk=Schk,
         s_lp_chk=s_lp_chk,
         Lchk=Lchk,
@@ -446,6 +631,12 @@ def prox_measure(c: Cones, p: Pars, st: State, kkt, d1, d2, which_infeas: bool):
 
 
 def _log_row(st: State, row) -> State:
+    if st.log.ndim == 3:
+        # a fleet: written where each instance's n_iter points (the merge
+        # in _drive keeps the rows of the instances that sat out)
+        hit = torch.arange(st.log.shape[1], device=st.log.device) == st.n_iter[:, None]
+        return st._replace(log=torch.where(hit[..., None], torch.stack(row, dim=-1)[:, None],
+                                           st.log))
     st.log.index_copy_(0, st.n_iter.to(torch.int64).reshape(1), torch.stack(row)[None])
     return st
 
@@ -461,15 +652,15 @@ def _phase_a_iteration(c: Cones, p: Pars, st: State, corrector_a: int):
     li = 1.0 / st.sl
     ui = 1.0 / st.su
     asinv_b = kkt.asinv + ui - li
-    M = kkt.M + torch.diag(li * li + ui * ui)
+    M = kkt.M + torch.diag_embed(li * li + ui * ui)
     kkt = kkt._replace(M=M, asinv=asinv_b)
 
     Lm, ok_m = factor_m(c, M)
     # failed KKT factorization terminates the phase deterministically
     # (otherwise NaN directions spin the loop to MAXITER)
     st = st._replace(status=torch.where(ok_m, st.status, NUMERICAL))
-    sols = solve_m(c, Lm, torch.stack([c.b, asinv_b, kkt.asinvrdsinv], dim=1))
-    d1, d2, d3 = sols[:, 0], sols[:, 1], sols[:, 2]
+    sols = solve_m(c, Lm, torch.stack([c.b, asinv_b, kkt.asinvrdsinv], dim=-1))
+    d1, d2, d3 = sols[..., 0], sols[..., 1], sols[..., 2]
 
     p_obj_type, st = prox_measure(c, p, st, kkt, d1, d2, True)
     st = st._replace(
@@ -508,9 +699,14 @@ def _phase_a_iteration(c: Cones, p: Pars, st: State, corrector_a: int):
     # mirror the do-while: first trial at alpha_c0
     interior, st = add_step_to_checker(c, st, dS, ds_lp, dsl, dsu, alpha_c0)
     alpha_c = torch.where(interior, alpha_c0, alpha_c0 * 0.8)
-    while _read(c, ~interior & (alpha_c > 1e-02 * max_step)):
+
+    def shrink(carry):
+        _, st, alpha_c = carry
         interior, st = add_step_to_checker(c, st, dS, ds_lp, dsl, dsu, alpha_c)
-        alpha_c = torch.where(interior, alpha_c, alpha_c * 0.8)
+        return interior, st, torch.where(interior, alpha_c, alpha_c * 0.8)
+
+    interior, st, alpha_c = _while(
+        c, lambda cr: ~cr[0] & (cr[2] > 1e-02 * max_step), shrink, (interior, st, alpha_c))
 
     dS2, ds_lp2, _, _ = set_step(c, st, 0.0, d3, 1.0)
     alpha_inf, lz = cone_ratio(c, st.Lchk, st.s_lp_chk, dS2, ds_lp2, st.lz)
@@ -530,7 +726,7 @@ def _phase_a_iteration(c: Cones, p: Pars, st: State, corrector_a: int):
     gamma = rate
 
     # ---- step: dy = d1/mu - d2 + gamma*d3
-    dy = d1 / st.mu - d2 + gamma * d3
+    dy = d1 / _v(st.mu) - d2 + _v(gamma) * d3
     dS, ds_lp, dsl, dsu = set_step(c, st, 0.0, dy, gamma)
     step, lz = cone_ratio(c, st.L, st.s_lp, dS, ds_lp, st.lz)
     st = st._replace(lz=lz)
@@ -539,7 +735,7 @@ def _phase_a_iteration(c: Cones, p: Pars, st: State, corrector_a: int):
     st = st._replace(
         d_step=d_step,
         n_small_step=st.n_small_step + _i32(d_step < 1e-03),
-        y=st.y + d_step * dy,
+        y=st.y + _v(d_step) * dy,
         Rd=st.Rd * (1.0 - gamma * d_step),
     )
 
@@ -552,7 +748,7 @@ def _phase_a_iteration(c: Cones, p: Pars, st: State, corrector_a: int):
     )
 
     # ---- bookkeeping (print_log updates d_obj_internal)
-    st = st._replace(d_obj_internal=c.b @ st.y)
+    st = st._replace(d_obj_internal=_dot(c, c.b, st.y))
     st = _log_row(st, [st.p_obj_internal, st.d_obj_internal, torch.abs(st.Rd), st.mu,
                        st.d_step, st.prox_norm])
 
@@ -566,99 +762,124 @@ def _phase_a_iteration(c: Cones, p: Pars, st: State, corrector_a: int):
 def _infeasible_corrector(c: Cones, p: Pars, st: State, Lm, n_max_corr: int):
     """algo.infeasible_corrector with the factorized M reused (Lm)."""
     interior, st = check_interior(c, st, 1.0, st.y)
-    if not _read(c, interior):
-        return st, c.no
+    return _cond(c, _read(c, interior),
+                 lambda: (_infeasible_rounds(c, p, st, Lm, n_max_corr), c.yes),
+                 lambda: (st, c.no))
 
-    barrier = logdet_cur(c, st)
-    ratio_max = st.mu.new_full((), 0.8)
-    active = True
+
+def _infeasible_rounds(c: Cones, p: Pars, st: State, Lm, n_max_corr: int):
+    """The corrector's rounds: each while (Rd != 0) and the last round's
+    rate did not fall to 0; an instance whose step got too small ends."""
+    carry = (st, logdet_cur(c, st), st.mu.new_full(_lead(c), 0.8), True)
+    stopped = False
     for _ in range(n_max_corr):
-        if not _read(c, (st.Rd != 0.0) & active):
+        if not _any(c, np.logical_not(stopped)):
             break
-        kkt = build_kkt(c, st.L, st.s_lp, st.Rd, "corr")
-        li = 1.0 / st.sl
-        ui = 1.0 / st.su
-        asinv_b = kkt.asinv + ui - li
-        sols = solve_m(c, Lm, torch.stack([asinv_b, kkt.asinvrdsinv], dim=1))
-        d2, d3 = sols[:, 0], sols[:, 1]
-
-        dy = -d2
-        dS, ds_lp, dsl, dsu = set_step(c, st, 0.0, dy, 0.0)
-        step, lz = cone_ratio(c, st.L, st.s_lp, dS, ds_lp, st.lz)
-        st = st._replace(lz=lz)
-        step = torch.minimum(step, bound_ratio(st.sl, st.su, dsl, dsu))
-        step = torch.clamp(0.8 * step, max=1.0)
-
-        # guarantee feasibility: halve until interior or tiny
-        interior = c.no
-        while _read(c, ~interior & (step >= 5e-03)):
-            interior, st = check_interior(c, st, 1.0, st.y + step * dy)
-            step = torch.where(interior, step, step * 0.5)
-
-        if _read(c, step < 5e-03):  # too small
-            _, st = check_interior(c, st, 1.0, st.y)
+        st, _, _, active = carry
+        go = np.logical_and(_read(c, (st.Rd != 0.0) & active), np.logical_not(stopped))
+        if not _any(c, go):
             break
+        with _narrow(c, go):
+            new, small = _infeasible_round(c, st, Lm, *carry[1:])
+        carry = _select(c, go, new, carry)
+        stopped = np.logical_or(stopped, np.logical_or(np.logical_not(go), small))
+    return carry[0]
 
+
+def _infeasible_round(c: Cones, st: State, Lm, barrier, ratio_max, active):
+    """One corrector round; returns ((st, barrier, ratio_max, active), the
+    host decision "too small": those instances end the corrector)."""
+    kkt = build_kkt(c, st.L, st.s_lp, st.Rd, "corr")
+    li = 1.0 / st.sl
+    ui = 1.0 / st.su
+    asinv_b = kkt.asinv + ui - li
+    sols = solve_m(c, Lm, torch.stack([asinv_b, kkt.asinvrdsinv], dim=-1))
+    d2, d3 = sols[..., 0], sols[..., 1]
+
+    dy = -d2
+    dS, ds_lp, dsl, dsu = set_step(c, st, 0.0, dy, 0.0)
+    step, lz = cone_ratio(c, st.L, st.s_lp, dS, ds_lp, st.lz)
+    st = st._replace(lz=lz)
+    step = torch.minimum(step, bound_ratio(st.sl, st.su, dsl, dsu))
+    step = torch.clamp(0.8 * step, max=1.0)
+
+    # guarantee feasibility: halve until interior or tiny
+    def halve(carry):
+        _, st, step = carry
+        interior, st = check_interior(c, st, 1.0, st.y + _v(step) * dy)
+        return interior, st, torch.where(interior, step, step * 0.5)
+
+    _, st, step = _while(c, lambda cr: ~cr[0] & (cr[2] >= 5e-03), halve, (c.no, st, step))
+
+    small = _read(c, step < 5e-03)
+
+    def too_small():
+        _, st2 = check_interior(c, st, 1.0, st.y)
+        return st2, barrier, ratio_max, active
+
+    def rest():
         new_barrier = logdet_cur(c, st)
-        if _read(c, new_barrier > barrier):  # worse
-            step = step * 0.5
-            _, st = check_interior(c, st, 1.0, st.y + step * dy)
-            barrier = torch.full_like(barrier, -INF)
-        else:
-            barrier = new_barrier
-        alpha_c = step
 
-        dS3, ds_lp3, dsl3, dsu3 = set_step(c, st, 0.0, d3, 1.0)
-        step2, lz = cone_ratio(c, st.L, st.s_lp, dS3, ds_lp3, st.lz)
-        st = st._replace(lz=lz)
-        step2 = torch.minimum(step2, bound_ratio(st.sl, st.su, dsl3, dsu3))
+        def worse():
+            step2 = step * 0.5
+            _, st2 = check_interior(c, st, 1.0, st.y + _v(step2) * dy)
+            return st2, step2, torch.full_like(barrier, -INF)
+
+        st2, alpha_c, barrier2 = _cond(c, _read(c, new_barrier > barrier), worse,
+                                       lambda: (st, step, new_barrier))
+
+        dS3, ds_lp3, dsl3, dsu3 = set_step(c, st2, 0.0, d3, 1.0)
+        step2, lz = cone_ratio(c, st2.L, st2.s_lp, dS3, ds_lp3, st2.lz)
+        st2 = st2._replace(lz=lz)
+        step2 = torch.minimum(step2, bound_ratio(st2.sl, st2.su, dsl3, dsu3))
         rate = torch.clamp(ratio_max * (step2 / alpha_c), max=1.0)
 
-        resi = st.Rd
+        resi = st2.Rd
+
         # NaN-safe cap: physically terminates because rate -> 0 recovers
         # the already-verified point y + alpha_c*dy
-        cand = st.y
-        for n in range(300):
+        def trip(carry):
+            st, _, rate = carry
             st = st._replace(Rd=resi * (1 - alpha_c * rate))
-            cand = st.y + alpha_c * (rate * d3 - d2)
+            cand = st.y + _v(alpha_c) * (_v(rate) * d3 - d2)
             interior, st = check_interior(c, st, 1.0, cand)
-            rate = torch.where(interior, rate, rate * 0.8)
-            if n + 1 < 300 and _read(c, interior):
-                break
+            return (st, cand, torch.where(interior, rate, rate * 0.8)), interior
+
+        st2, cand, rate = _repeat(c, trip, (st2, st2.y, rate), 300)
 
         ar = alpha_c * rate
         ratio_new = torch.where(
             ar < 5e-04, 0.0, torch.where(ar < 0.1, ratio_max * 0.9, ratio_max)
         )
-        mu_new = torch.where(ar > 0.8, st.mu * 0.8, st.mu)
+        mu_new = torch.where(ar > 0.8, st2.mu * 0.8, st2.mu)
         ratio_new = torch.where(ar > 0.8, torch.clamp(ratio_new * 2.0, max=0.9), ratio_new)
         mid = (ar <= 0.8) & (ar > 0.3)
         mu_new = torch.where(mid, mu_new * 0.95, mu_new)
         ratio_new = torch.where(mid, torch.clamp(ratio_new * 2.0, max=0.8), ratio_new)
-        st = st._replace(y=cand, mu=mu_new)
-        ratio_max = ratio_new
-        active = ratio_new != 0.0
-    return st, c.yes
+        return st2._replace(y=cand, mu=mu_new), barrier2, ratio_new, ratio_new != 0.0
+
+    return _cond(c, small, too_small, rest), small
 
 
 def _phase_a_body(c: Cones, p: Pars, reset_rd, st: State, corrector_a: int,
                   allow_reset: bool):
     """One Phase-A iteration incl. the n_iter==3 reset branch."""
     reset = allow_reset & (st.n_iter == 3) & (st.p_obj_found == 0)
-    do_reset, running = _read_all(c, reset, st.status == RUNNING)
-    if do_reset:
-        # algo.reset_start + interior check
-        st = st._replace(
-            y=torch.zeros_like(st.y),
-            p_obj_internal=torch.full_like(st.p_obj_internal, 1e+15),
-            Rd=reset_rd,
-        )
-        interior, st = check_interior(c, st, 1.0, st.y)
-        st = st._replace(status=torch.where(interior, st.status, NUMERICAL))
+    do_reset, running = (_h(v) for v in _read_all(c, reset, st.status == RUNNING))
+    if _any(c, do_reset):
+        def reset_start():
+            # algo.reset_start + interior check
+            st2 = st._replace(
+                y=torch.zeros_like(st.y),
+                p_obj_internal=torch.full_like(st.p_obj_internal, 1e+15),
+                Rd=reset_rd,
+            )
+            interior, st2 = check_interior(c, st2, 1.0, st2.y)
+            return st2._replace(status=torch.where(interior, st2.status, NUMERICAL))
+
+        st = _cond(c, do_reset, reset_start, lambda: st)
         running = _read(c, st.status == RUNNING)
-    if running:
-        st = _phase_a_iteration(c, p, st, corrector_a)
-    return st
+    return _cond(c, running, lambda: _phase_a_iteration(c, p, st, corrector_a), lambda: st)
 
 
 def _drive(c: Cones, body, st, max_iter: int, is_phase_b: bool, test_first: bool,
@@ -666,14 +887,28 @@ def _drive(c: Cones, body, st, max_iter: int, is_phase_b: bool, test_first: bool
     """Run a phase body until its status leaves RUNNING: one host read of
     (status, n_iter) per iteration.  ``test_first`` mirrors the in-graph
     while_loop ("phase": test before every trip); without it the body runs
-    first and the wall clock is checked after every trip ("iter")."""
-    extras = phase_b_init_extras(c.b.device) if is_phase_b else None
+    first and the wall clock is checked after every trip ("iter").  A
+    fleet runs "phase" (the JAX package's vmapped program): each trip
+    steps the instances still running and freezes the others."""
+    extras = phase_b_init_extras(c.b.device, _lead(c)) if is_phase_b else None
 
     def step(st, extras):
         if is_phase_b:
             out = body((st,) + extras)
             return out[0], out[1:]
         return body(st), None
+
+    if c.fleet:
+        if not test_first or deadline is not None:
+            raise ValueError("a fleet runs whole phases (\"phase\") only, with no deadline")
+        while True:
+            code, n_iter = _read_all(c, st.status, st.n_iter)
+            run = (code == RUNNING) & (n_iter < max_iter)
+            if not run.any():
+                return st._replace(status=torch.where(st.status == RUNNING, MAXITER, st.status))
+            with _narrow(c, run):
+                new = step(st, extras)
+            st, extras = _select(c, run, new, (st, extras))
 
     if not test_first:
         st, extras = step(st, extras)
@@ -699,62 +934,71 @@ def _choose_barrier(c: Cones, p: Pars, st: State, kkt, d1, d2, p_obj_type):
     upper = gap / p.all_cone_dims
     lower = upper / p.pot_rho
 
-    if _read(c, p_obj_type > 0):  # found
-        dy1 = -d1 / st.mu
+    def found():
+        dy1 = -d1 / _v(st.mu)
         dS, ds_lp, dsl, dsu = set_step(c, st, 0.0, dy1, 0.0)
         step, lz = cone_ratio(c, st.Lchk, st.s_lp_chk, dS, ds_lp, st.lz)
-        st = st._replace(lz=lz)
-        step = torch.minimum(step, bound_ratio(st.sl_chk, st.su_chk, dsl, dsu))
+        st2 = st._replace(lz=lz)
+        step = torch.minimum(step, bound_ratio(st2.sl_chk, st2.su_chk, dsl, dsu))
         step = torch.clamp(step * 0.97, max=1e+05)
-        st, ok = st._replace(mu=st.mu / (1.0 + step)), c.yes
-    else:
-        dy2 = -d1 / st.mu + d2
+        return c.yes, st2._replace(mu=st2.mu / (1.0 + step))
+
+    def not_found():
+        dy2 = -d1 / _v(st.mu) + d2
         dS, ds_lp, dsl, dsu = set_step(c, st, 0.0, dy2, 0.0)
         step_c, lz = cone_ratio(c, st.L, st.s_lp, dS, ds_lp, st.lz)
-        st = st._replace(lz=lz)
+        st2 = st._replace(lz=lz)
         max_step0 = step_c
-        step_b = bound_ratio(st.sl, st.su, dsl, dsu)
+        step_b = bound_ratio(st2.sl, st2.su, dsl, dsu)
         p_step = torch.minimum(max_step0, step_b)
         p_step = torch.where(p_step < 1.0, 0.97 * p_step, p_step)
 
-        interior, n_try = c.no, 0
-        while _read(c, ~interior & (p_step >= 1e-05)):
+        n_try = [0]  # every instance still trying has made the same trials
+
+        def trial(carry):
+            _, st, p_step = carry
             interior, st = add_step_to_checker(c, st, dS, ds_lp, dsl, dsu, p_step)
-            p_step = torch.where(interior, p_step, p_step * (0.97 if n_try > 2 else 0.5))
-            n_try += 1
+            p_step = torch.where(interior, p_step, p_step * (0.97 if n_try[0] > 2 else 0.5))
+            n_try[0] += 1
+            return interior, st, p_step
+
+        interior, st2, p_step = _while(c, lambda cr: ~cr[0] & (cr[2] >= 1e-05), trial,
+                                       (c.no, st2, p_step))
         ok = interior
 
-        dy1 = -p_step * d1 / st.mu
-        dS1, ds_lp1, dsl1, dsu1 = set_step(c, st, 0.0, dy1, 0.0)
-        step2, lz = cone_ratio(c, st.Lchk, st.s_lp_chk, dS1, ds_lp1, st.lz)
-        st = st._replace(lz=lz)
+        dy1 = -_v(p_step) * d1 / _v(st2.mu)
+        dS1, ds_lp1, dsl1, dsu1 = set_step(c, st2, 0.0, dy1, 0.0)
+        step2, lz = cone_ratio(c, st2.Lchk, st2.s_lp_chk, dS1, ds_lp1, st2.lz)
+        st2 = st2._replace(lz=lz)
         max_step = torch.minimum(max_step0, step2)
-        max_step = torch.minimum(max_step, bound_ratio(st.sl_chk, st.su_chk, dsl1, dsu1))
+        max_step = torch.minimum(max_step, bound_ratio(st2.sl_chk, st2.su_chk, dsl1, dsu1))
         max_step = torch.clamp(max_step * 0.97, max=1e+05)
-        mu_new = p_step * st.mu / (1.0 + max_step) + (1.0 - p_step) * (
-            st.p_obj_internal - st.d_obj_internal
+        mu_new = p_step * st2.mu / (1.0 + max_step) + (1.0 - p_step) * (
+            st2.p_obj_internal - st2.d_obj_internal
         ) / p.all_cone_dims
-        st = st._replace(mu=mu_new)
+        return ok, st2._replace(mu=mu_new)
 
+    ok, st = _cond(c, _read(c, p_obj_type > 0), found, not_found)
     st = st._replace(mu=torch.clamp(st.mu, min=lower, max=upper))
     return ok, st
 
 
 def _feasible_build_step(c: Cones, p: Pars, st: State, kkt, d1, d2):
     """algo.feasible_build_step (mu shrink loop; its first trip is known)."""
-    mu = st.mu
-    for n in range(300):  # n caps NaN runaway
-        dy = d1 / mu - d2
-        v = c.b / mu - kkt.asinv
-        prox2 = v @ dy
+
+    def trip(carry):  # n caps NaN runaway
+        mu, _ = carry
+        dy = d1 / _v(mu) - d2
+        v = c.b / _v(mu) - kkt.asinv
+        prox2 = _dot(c, v, dy)
         neg = prox2 < 0.0
         prox = torch.where(neg, 1e+02, torch.sqrt(torch.clamp(prox2, min=0.0)))
         done = neg | (prox >= 0.1)
-        mu = torch.where(done, mu, 0.1 * mu)
-        if n + 1 >= 300 or _read(c, done):
-            break
+        return (torch.where(done, mu, 0.1 * mu), prox), done
+
+    mu, prox = _repeat(c, trip, (st.mu, None), 300)
     st = st._replace(mu=mu, prox_norm=prox)
-    return d1 / mu - d2, st
+    return d1 / _v(mu) - d2, st
 
 
 def _primal_infeas_check(c: Cones, p: Pars, st: State, force):
@@ -765,14 +1009,16 @@ def _primal_infeas_check(c: Cones, p: Pars, st: State, force):
         | ((st.p_infeas > 0.01 * p.rhs_one_norm) & (st.mu < 1e-03))
     )
     d_obj_val = st.d_obj_internal * p.pd_scal
-    norm = torch.linalg.vector_norm(st.y)
+    norm = torch.linalg.vector_norm(st.y, dim=-1)
     trigger = trigger & (d_obj_val >= 0.0) & (norm > 0.0)
-    if not _read(c, trigger):
-        return c.no, st
-    yn = st.y / norm
-    S, s_lp = assemble(c, 0.0, -1.0, yn, 1e-08 + st.perturb)
-    ok, L = factor(c, S, s_lp)
-    return ok, st._replace(Schk=S, s_lp_chk=s_lp, Lchk=L)
+
+    def ray():
+        yn = st.y / _v(norm)
+        S, s_lp = assemble(c, 0.0, -1.0, yn, 1e-08 + st.perturb)
+        ok, L = factor(c, S, s_lp)
+        return ok, st._replace(Schk=S, s_lp_chk=s_lp, Lchk=L)
+
+    return _cond(c, _read(c, trigger), ray, lambda: (c.no, st))
 
 
 def _reduce_potential(c: Cones, p: Pars, st: State, dy):
@@ -790,28 +1036,40 @@ def _reduce_potential(c: Cones, p: Pars, st: State, dy):
 
     pot_now = logdet_cur(c, st) + rho * torch.log(st.p_obj_internal - st.d_obj_internal)
 
-    fail = c.no
-    for n in range(300):
-        cand = st.y + s * dy
+    def trip(carry):
+        st, s, fail = carry
+        cand = st.y + _v(s) * dy
         interior, st = check_interior(c, st, 1.0, cand)
         # the interior/accept conds have elementwise branches (torch.where);
         # only the tiny-step branch refactors
-        pot_new = logdet_cur(c, st) + rho * torch.log(st.p_obj_internal - c.b @ cand)
+        pot_new = logdet_cur(c, st) + rho * torch.log(st.p_obj_internal - _dot(c, c.b, cand))
         accept = (
             (pot_new <= pot_now - required_dec)
             | (s * st.prox_norm <= 0.001)
             | (s < min_step_tol)
         )
         acc = interior & accept
-        tiny, done = _read_all(c, interior & ~accept & (s < 1e-04), acc)
-        if tiny:
-            interior2, st = check_interior(c, st, 1.0, st.y)
-            fail = ~interior2
+        tiny, done = (_h(v) for v in _read_all(c, interior & ~accept & (s < 1e-04), acc))
+
+        def tiny_step():
+            interior2, st2 = check_interior(c, st, 1.0, st.y)
+            return st2, s, ~interior2
+
+        def step_on():
+            return (st._replace(y=_where(acc, cand, st.y)),
+                    torch.where(interior, torch.where(accept, s, s * 0.3), s * 0.33), fail)
+
+        return _cond(c, tiny, tiny_step, step_on), np.logical_or(tiny, done)
+
+    carry, todo = (st, s, c.no), True
+    for _ in range(300):
+        with _narrow(c, todo):
+            new, stop = trip(carry)
+        carry = _select(c, todo, new, carry)
+        todo = np.logical_and(todo, np.logical_not(stop))
+        if not _any(c, todo):
             break
-        st = st._replace(y=torch.where(acc, cand, st.y))
-        s = torch.where(interior, torch.where(accept, s, s * 0.3), s * 0.33)
-        if done:
-            break
+    st, s, fail = carry
     st = st._replace(d_step=s)
     return ~fail, st
 
@@ -819,36 +1077,40 @@ def _reduce_potential(c: Cones, p: Pars, st: State, dy):
 def _feasible_corrector(c: Cones, p: Pars, st: State, Lm, d1, n_max_corr: int,
                         corr_disable):
     """algo.feasible_corrector.  Returns (st, disable_flag)."""
-    acd = p.all_cone_dims
-    shrink = acd / (acd + torch.sqrt(acd))
-    b_dot_d1 = c.b @ d1
-
     disable = (
         ((st.d_step < 0.1) & (st.mu < 1e-05)) | (st.d_step < 1e-03) | (st.mu < 1e-06)
     )
     n_eff_zero = (st.prox_norm < 0.1) | (st.d_step < 1e-02) | disable | corr_disable
-    if n_max_corr == 0 or _read(c, n_eff_zero):
+    if n_max_corr == 0:
         return st, disable
+    st = _cond(c, _read(c, n_eff_zero), lambda: st,
+               lambda: _feasible_rounds(c, p, st, Lm, d1, n_max_corr))
+    return st, disable
 
-    b_dot_corr = torch.zeros_like(b_dot_d1)
-    go = _read(c, st.mu >= 1e-05)
-    for _ in range(n_max_corr):
-        if not go:
-            break
+
+def _feasible_rounds(c: Cones, p: Pars, st: State, Lm, d1, n_max_corr: int):
+    """The feasible corrector's rounds, each while mu >= 1e-5 and the last
+    round's step was not tiny."""
+    acd = p.all_cone_dims
+    shrink = acd / (acd + torch.sqrt(acd))
+    b_dot_d1 = _dot(c, c.b, d1)
+
+    def round_(carry):
+        st, b_dot_corr = carry
         kkt = build_kkt(c, st.L, st.s_lp, st.Rd, "corr")
         li = 1.0 / st.sl
         ui = 1.0 / st.su
         d2 = solve_m(c, Lm, kkt.asinv + ui - li)
-        b_dot_d2 = c.b @ d2
+        b_dot_d2 = _dot(c, c.b, d2)
         mu_new = torch.where((b_dot_d2 > 0) & (b_dot_d1 > 0), b_dot_d1 / b_dot_d2,
                              st.mu) * shrink
         st = st._replace(mu=mu_new)
 
-        dy = d1 / st.mu - d2
-        b_dot_corr = b_dot_corr + c.b @ dy
+        dy = d1 / _v(st.mu) - d2
+        b_dot_corr = b_dot_corr + _dot(c, c.b, dy)
 
         # barrier function -(b'y + mu*logdet)
-        barrier_now = -(c.b @ st.y + st.mu * (-logdet_cur(c, st)))
+        barrier_now = -(_dot(c, c.b, st.y) + st.mu * (-logdet_cur(c, st)))
         dS, ds_lp, dsl, dsu = set_step(c, st, 0.0, dy, 0.0)
         step, lz = cone_ratio(c, st.L, st.s_lp, dS, ds_lp, st.lz)
         st = st._replace(lz=lz)
@@ -856,10 +1118,11 @@ def _feasible_corrector(c: Cones, p: Pars, st: State, Lm, d1, n_max_corr: int,
         step = step * 0.95
         step = torch.minimum(step, p.pot_rho / torch.clamp(st.prox_norm, min=1e-300))
 
-        for n in range(300):
-            cand = st.y + step * dy
+        def trip(carry):
+            st, step = carry
+            cand = st.y + _v(step) * dy
             interior, st = check_interior(c, st, 1.0, cand)
-            barrier_new = -(c.b @ cand + st.mu * (-logdet_cur(c, st)))
+            barrier_new = -(_dot(c, c.b, cand) + st.mu * (-logdet_cur(c, st)))
             done = (step < 1e-04) | (
                 barrier_new <= barrier_now - torch.abs(0.05 * b_dot_corr * step)
             )
@@ -867,16 +1130,29 @@ def _feasible_corrector(c: Cones, p: Pars, st: State, Lm, d1, n_max_corr: int,
             frac = b_dot_corr / torch.where(denom == 0, 1e-300, denom)
             use_quad = (denom != 0) & (frac > 0) & (frac < step)
             s_int = torch.where(done, step, torch.where(use_quad, frac, step * 0.5))
-            step = torch.where(interior, s_int, step * 0.5)
-            if n + 1 >= 300 or _read(c, interior & done):
-                break
+            return (st, torch.where(interior, s_int, step * 0.5)), interior & done
 
-        tiny, go = _read_all(c, step < 1e-04, st.mu >= 1e-05)
-        if tiny:
-            _, st = check_interior(c, st, 1.0, st.y)
+        st, step = _repeat(c, trip, (st, step), 300)
+
+        tiny, go = (_h(v) for v in _read_all(c, step < 1e-04, st.mu >= 1e-05))
+
+        def tiny_step():
+            _, st2 = check_interior(c, st, 1.0, st.y)
+            return st2
+
+        st = _cond(c, tiny, tiny_step, lambda: st._replace(y=st.y + _v(step) * dy))
+        return (st, b_dot_corr), np.logical_and(go, np.logical_not(tiny))
+
+    carry = (st, torch.zeros_like(b_dot_d1))
+    go = _read(c, st.mu >= 1e-05)
+    for _ in range(n_max_corr):
+        if not _any(c, go):
             break
-        st = st._replace(y=st.y + step * dy)
-    return st, disable
+        with _narrow(c, go):
+            new, go_next = round_(carry)
+        carry = _select(c, go, new, carry)
+        go = np.logical_and(go, go_next)
+    return carry[0]
 
 
 def _phase_b_iteration(c: Cones, p: Pars, st_ex, corrector_b: int, psdp_eligible: bool):
@@ -888,17 +1164,17 @@ def _phase_b_iteration(c: Cones, p: Pars, st_ex, corrector_b: int, psdp_eligible
     li = 1.0 / st.sl
     ui = 1.0 / st.su
     asinv_b = kkt.asinv + ui - li
-    M = kkt.M + torch.diag(li * li + ui * ui)
+    M = kkt.M + torch.diag_embed(li * li + ui * ui)
     # regularize if mu > 1 (algo.regularize_kkt(1e-6))
-    reg = torch.clamp(1e-06 * torch.min(torch.diagonal(M)), max=1e-05)
+    reg = torch.clamp(1e-06 * _vmin(c, torch.diagonal(M, dim1=-2, dim2=-1)), max=1e-05)
     reg = torch.where((reg < 1e-14) | (st.mu <= 1.0), 0.0, reg)
-    M = M + reg * torch.eye(M.shape[0], dtype=M.dtype, device=M.device)
+    M = M + schur_ops.bcast(reg, 2) * torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
     kkt = kkt._replace(M=M, asinv=asinv_b)
 
     Lm, ok_m = factor_m(c, M)
     st = st._replace(status=torch.where(ok_m, st.status, NUMERICAL))
-    sols = solve_m(c, Lm, torch.stack([c.b, asinv_b], dim=1))
-    d1, d2 = sols[:, 0], sols[:, 1]
+    sols = solve_m(c, Lm, torch.stack([c.b, asinv_b], dim=-1))
+    d1, d2 = sols[..., 0], sols[..., 1]
 
     p_obj_type, st = prox_measure(c, p, st, kkt, d1, d2, False)
     st = st._replace(
@@ -915,17 +1191,20 @@ def _phase_b_iteration(c: Cones, p: Pars, st_ex, corrector_b: int, psdp_eligible
     ray, st = _primal_infeas_check(c, p, st, force_detect)
     st = st._replace(status=torch.where(ray, INFEAS, st.status))
 
-    if _read(c, st.status == RUNNING):  # continue_iter
-        ok_pot, st = _reduce_potential(c, p, st, dy)
-        st = st._replace(
-            status=torch.where(ok_pot, st.status, NUMERICAL),
-            n_small_step=st.n_small_step + _i32(st.d_step < 1e-03),
+    def continue_iter():
+        ok_pot, st2 = _reduce_potential(c, p, st, dy)
+        st2 = st2._replace(
+            status=torch.where(ok_pot, st2.status, NUMERICAL),
+            n_small_step=st2.n_small_step + _i32(st2.d_step < 1e-03),
         )
-        st, disable = _feasible_corrector(c, p, st, Lm, d1, corrector_b, corr_disable)
-        corr_disable = corr_disable | disable
+        st2, disable = _feasible_corrector(c, p, st2, Lm, d1, corrector_b, corr_disable)
+        return st2, corr_disable | disable
+
+    st, corr_disable = _cond(c, _read(c, st.status == RUNNING), continue_iter,
+                             lambda: (st, corr_disable))
 
     # log-equivalent bookkeeping
-    st = st._replace(d_obj_internal=c.b @ st.y)
+    st = st._replace(d_obj_internal=_dot(c, c.b, st.y))
     st = _log_row(st, [st.p_obj_internal, st.d_obj_internal, st.p_infeas, st.mu,
                        st.d_step, st.prox_norm])
     p_obj_val = st.p_obj_internal * p.pd_scal
@@ -948,14 +1227,15 @@ def _phase_b_iteration(c: Cones, p: Pars, st_ex, corrector_b: int, psdp_eligible
     return st, force_detect, n_internal, corr_disable, no_p_obj_found
 
 
-def phase_b_init_extras(device):
+def phase_b_init_extras(device, lead: tuple = ()):
     """Initial auxiliary loop state for Phase B (see _phase_b_iteration):
-    (force_detect, n_internal, corrector disabled, no_p_obj_found)."""
+    (force_detect, n_internal, corrector disabled, no_p_obj_found), with
+    a fleet's leading axis ``lead``."""
     return (
-        torch.ones((), dtype=torch.bool, device=device),
-        torch.zeros((), dtype=torch.int32, device=device),
-        torch.zeros((), dtype=torch.bool, device=device),
-        torch.zeros((), dtype=torch.int32, device=device),
+        torch.ones(lead, dtype=torch.bool, device=device),
+        torch.zeros(lead, dtype=torch.int32, device=device),
+        torch.zeros(lead, dtype=torch.bool, device=device),
+        torch.zeros(lead, dtype=torch.int32, device=device),
     )
 
 
@@ -1172,6 +1452,59 @@ def _state_from_ipm(ipm) -> State:
     )
 
 
+def _stack(xs):
+    """torch.stack that keeps each instance's memory layout: a Cholesky
+    factor is column-major, and the triangular solves of a row-major copy
+    round otherwise than the single solve's."""
+    like = torch.empty_like(xs[0])
+    out = torch.empty_strided((len(xs),) + tuple(like.shape), (like.numel(),) + like.stride(),
+                              dtype=like.dtype, device=like.device)
+    for o, x in zip(out, xs):
+        o.copy_(x)
+    return out
+
+
+def stack_tree(trees):
+    """N trees of one structure (State, Pars, Maker, tuples) as one tree
+    whose tensors carry a leading axis of N instances."""
+    t0 = trees[0]
+    if t0 is None:
+        return None
+    if isinstance(t0, torch.Tensor):
+        return _stack(trees)
+    if isinstance(t0, tuple):
+        return tuple(stack_tree(list(xs)) for xs in zip(*trees))
+    return type(t0)(**{f.name: stack_tree([getattr(t, f.name) for t in trees])
+                       for f in dataclasses.fields(t0)})
+
+
+def index_tree(tree, i: int):
+    """Instance i of a stacked tree (views of its tensors)."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    if isinstance(tree, tuple):
+        return tuple(index_tree(x, i) for x in tree)
+    return type(tree)(**{f.name: index_tree(getattr(tree, f.name), i)
+                         for f in dataclasses.fields(tree)})
+
+
+def stack_cones(cs) -> Cones:
+    """A fleet's Cones from its instances' (ops.schur.stack_groups pads
+    the summation tables); the Config is the first instance's."""
+    lp = None
+    if cs[0].lp is not None:
+        lp = schur_ops.LPArrays(A=torch.stack([c.lp.A for c in cs]),
+                                c=torch.stack([c.lp.c for c in cs]))
+    groups = tuple(schur_ops.stack_groups([c.groups[i] for c in cs])
+                   for i in range(len(cs[0].groups)))
+    return Cones(groups=groups, lp=lp, b=torch.stack([c.b for c in cs]),
+                 bound_lo=torch.stack([c.bound_lo for c in cs]),
+                 bound_up=torch.stack([c.bound_up for c in cs]), cfg=cs[0].cfg,
+                 fleet=len(cs))
+
+
 def state_from_numpy(tree, device) -> State:
     """A fused ``State`` of the JAX package with numpy leaves (e.g.
     ``jax.tree.map(np.asarray, st)``) as the port's State on ``device``,
@@ -1262,16 +1595,24 @@ def _print_fused_log(ipm, st: State, method: str, start_iter: int):
                              extra, elapsed)
 
 
-def _run_phase(ipm, c: Cones, body, st, whole: bool, is_phase_b: bool):
+def phase_exit(name: str, code: int, n_iter: int) -> str:
+    """How a phase ended, before the DIMACS check decides the final status
+    (``Result.stats["fused_exit"]``; solver.batch's ``batch_exit``)."""
+    what = "PSDP_HANDOFF" if code == PSDP_HANDOFF else _STATUS_MAP.get(code, "NUMERICAL")
+    return f"phase {name}: {what} at iteration {n_iter}"
+
+
+def _run_phase(ipm, c: Cones, name: str, body, st, whole: bool, is_phase_b: bool):
     """One phase launch: "phase" (whole) drives the body as the JAX
     package's in-graph while_loop does, "iter" with the wall-clock check.
-    Syncs the end state back into the ipm and returns (status code, end
-    state)."""
+    Syncs the end state back into the ipm, records how the phase ended
+    and returns (status code, end state)."""
     p = ipm.params
     deadline = None if whole else ipm.time_begin + p.time_limit
     st = _drive(c, body, st, p.max_iter, is_phase_b, whole, deadline)
     code = int(st.status)
     _sync_to_ipm(st, ipm, c)
+    ipm._factor_stats["fused_exit"] = phase_exit(name, code, ipm.n_iter)
     return code, st
 
 
@@ -1296,7 +1637,7 @@ def _run_hsd_fused(ipm, c: Cones, d_only: bool, whole: bool = True):
         1.0 / (ipm.rhs_scal * ipm.obj_scal),
     ))
     start_iter = ipm.n_iter
-    code, st = _run_phase(ipm, c, lambda s: _hsd_body(c, hp, s), _state_from_ipm(ipm), whole,
+    code, st = _run_phase(ipm, c, "A'", lambda s: _hsd_body(c, hp, s), _state_from_ipm(ipm), whole,
                           False)
     _print_fused_log(ipm, st, "hsd", start_iter)
     if code == DUAL_FEASIBLE:
@@ -1344,7 +1685,7 @@ def _solve_fused(ipm, c: Cones, d_only: bool, whole: bool):
     pars_a = _pars_from_ipm(ipm, "a")
     start_iter = ipm.n_iter
     code, st = _run_phase(
-        ipm, c, lambda s: _phase_a_body(c, pars_a, reset_rd, s, p.corrector_a, allow_reset),
+        ipm, c, "A", lambda s: _phase_a_body(c, pars_a, reset_rd, s, p.corrector_a, allow_reset),
         _state_from_ipm(ipm), whole, False)
     ipm.status = _STATUS_MAP.get(code, algo.NUMERICAL)
     _print_fused_log(ipm, st, "infeas", start_iter)
@@ -1374,7 +1715,7 @@ def _solve_fused(ipm, c: Cones, d_only: bool, whole: bool):
     while True:
         start_iter = ipm.n_iter
         code, st = _run_phase(
-            ipm, c, lambda s: _phase_b_iteration(c, pars_b, s, p.corrector_b, psdp_eligible),
+            ipm, c, "B", lambda s: _phase_b_iteration(c, pars_b, s, p.corrector_b, psdp_eligible),
             _state_from_ipm(ipm), whole, True)
         _print_fused_log(ipm, st, "potential", start_iter)
 

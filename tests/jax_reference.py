@@ -5,15 +5,24 @@ scripts: where the reference objectives and iteration counts in
     JAX_PLATFORMS=cpu python tests/jax_reference.py theta-m25001
     JAX_PLATFORMS=cpu python tests/jax_reference.py maxG51 --fused auto
     JAX_PLATFORMS=cpu python tests/jax_reference.py --lp lp1800
+    JAX_PLATFORMS=cpu python tests/jax_reference.py gpp500 --fused auto --seed 1
+    JAX_PLATFORMS=cpu python tests/jax_reference.py gpp500 --batch 4
 
 Solves the instance's generator call (``hdsdp_tpu_torch/utils/instances.py``)
 with ``hdsdp_tpu``'s ``HDSDPSolver(prob, fused=...)`` and the instance's
-overrides, on the CPU, and prints one JSON line.  ``--fused`` defaults to
+overrides (``--seed`` replaces the generator's seed: the other members of
+a ``chip_smoke.py`` fleet), on the CPU, and prints one JSON line.  ``--fused`` defaults to
 ``false``, the host loop (``FAMILY_REFS``, ``OPERATOR_JAX_REF``);
 ``--fused auto`` takes the JAX package's default mode, the fused
 programs below its memory budget (``FUSED_REFS``).  The largest instance
 (theta-m25001, operator mode) holds about 19 GB and takes a quarter of an
 hour on 8 cores.
+
+``--batch N`` solves the generator at seeds 0..N-1 as one fleet with the
+JAX package's ``solve_batch`` and the instance's overrides, and prints
+one JSON line: each member's status, iterations and objective, and which
+members its fleet finished and which it re-solved solo (the fleets of
+``chip_smoke.py``'s ``[batch]`` phase).
 
 ``--lp NAME`` solves a named LP instance instead
 (``LP_INSTANCES`` of the same module, written to an MPS file and read
@@ -49,8 +58,10 @@ from hdsdp_tpu_torch.utils.instances import (  # noqa: E402
 FUSED = {"false": False, "auto": "auto", "phase": "phase", "iter": "iter"}
 
 
-def main(name: str, fused) -> int:
+def main(name: str, fused, seed=None) -> int:
     gen, kwargs, overrides = INSTANCES[name]
+    if seed is not None:
+        kwargs = dict(kwargs, seed=seed)
     t0 = time.time()
     prob = SDPProblem.from_sdpa(getattr(synthetic, gen)(**kwargs))
     solver = HDSDPSolver(prob, fused=fused, verbose=False, **overrides)
@@ -61,6 +72,33 @@ def main(name: str, fused) -> int:
         "p_obj": r.p_obj, "dimacs_max": float(abs(r.dimacs).max()),
         "psdp_ended_the_solve": solver.ipm.psdp is not None,
         "stats": {k: v for k, v in r.stats.items() if isinstance(v, (int, float))},
+        "cpu_wall_s": time.time() - t0,
+    }))
+    return 0
+
+
+def main_batch(name: str, n: int) -> int:
+    from hdsdp_tpu.solver import batch
+
+    gen, kwargs, overrides = INSTANCES[name]
+    probs = [SDPProblem.from_sdpa(getattr(synthetic, gen)(**dict(kwargs, seed=s)))
+             for s in range(n)]
+    resolved = []
+
+    class Solo(HDSDPSolver):
+        def optimize(self):
+            resolved.append(self.prob)
+            return super().optimize()
+
+    batch.HDSDPSolver = Solo
+    t0 = time.time()
+    rs = batch.solve_batch(probs, **overrides)
+    print(json.dumps({
+        "instance": name, "generator": gen, "kwargs": kwargs, "seeds": list(range(n)),
+        "overrides": overrides, "status": [r.status for r in rs],
+        "iterations": [r.n_iters for r in rs], "d_obj": [r.d_obj for r in rs],
+        "dimacs_max": [float(abs(r.dimacs).max()) for r in rs],
+        "resolved_solo": [any(p is q for q in resolved) for p in probs],
         "cpu_wall_s": time.time() - t0,
     }))
     return 0
@@ -94,7 +132,13 @@ if __name__ == "__main__":
     ap.add_argument("name", nargs="?", choices=sorted(INSTANCES))
     ap.add_argument("--fused", choices=sorted(FUSED), default="false")
     ap.add_argument("--lp", choices=sorted(LP_INSTANCES))
+    ap.add_argument("--seed", type=int, default=None, help="replace the generator's seed")
+    ap.add_argument("--batch", type=int, default=None, help="solve seeds 0..N-1 as one fleet")
     args = ap.parse_args()
     if (args.name is None) == (args.lp is None):
         ap.error("give one instance NAME or one --lp NAME")
-    sys.exit(main_lp(args.lp) if args.lp else main(args.name, FUSED[args.fused]))
+    if args.lp:
+        sys.exit(main_lp(args.lp))
+    if args.batch:
+        sys.exit(main_batch(args.name, args.batch))
+    sys.exit(main(args.name, FUSED[args.fused], args.seed))

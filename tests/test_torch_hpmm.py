@@ -442,3 +442,92 @@ def test_kernel_bitwise_equals_plain_on_card():
     # the kernel stages K-contiguous rows only; anything else is refused
     with pytest.raises(ValueError, match="K-contiguous"):
         thpmm.hpmm_pairs(a_sl, b_sl.contiguous(), 5)
+
+
+# -- the fleet axis (solver.batch): K1/K1s take N same-shape operands ------
+
+
+def _fleet_operands(seed, n_f, m, k, n, b_view=False):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n_f, m, k)) * np.logspace(-3, 3, m)[None, :, None]
+    b = rng.standard_normal((n_f, k, n))
+    bt = torch.as_tensor(b)
+    if b_view:  # the pair products' B: a transposed view, as ops/schur.py passes it
+        bt = torch.as_tensor(np.ascontiguousarray(np.swapaxes(b, 1, 2))).transpose(1, 2)
+    return a, b, torch.as_tensor(a), bt
+
+
+@pytest.mark.parametrize("n_f,m,k,n,b_view", [(3, 37, 300, 45, False), (4, 21, 256, 21, True),
+                                              (2, 9, 513, 5, False)])
+def test_fleet_hpmm_equals_stacked_singles_and_jax_vmap(n_f, m, k, n, b_view):
+    """A fleet's product is bitwise the stack of its single products, and
+    bitwise jax.vmap of the JAX package's hpmm."""
+    import jax
+
+    a, b, ta, tb = _fleet_operands(n_f * 100 + m, n_f, m, k, n, b_view)
+    fleet = thpmm.hpmm(ta, tb)
+    singles = torch.stack([thpmm.hpmm(ta[i], tb[i]) for i in range(n_f)])
+    assert torch.equal(fleet, singles)
+    cj = np.asarray(jax.vmap(jhpmm.hpmm)(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_array_equal(fleet.numpy(), cj)
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("dd_input", [False, True], ids=["f64", "dd"])
+def test_fleet_slice_ref_equals_stacked_singles(axis, dd_input):
+    rng = np.random.default_rng(11 + axis)
+    x = torch.as_tensor(rng.standard_normal((3, 40, 300)) * np.logspace(-20, 20, 40)[:, None])
+    x[1, 5, 7] = float("nan")
+    op = thpmm.dd.from_f64(x) if dd_input else x
+    sl, e = thpmm.slice_ref(op, axis)
+    assert sl.shape[:2] == (3, 6) and e.shape[0] == 3
+    for i in range(3):
+        sl_i, e_i = thpmm.slice_ref(tuple(t[i] for t in op) if dd_input else op[i], axis)
+        assert torch.equal(sl[i].isnan(), sl_i.isnan())
+        assert torch.equal(sl[i].nan_to_num(), sl_i.nan_to_num()) and torch.equal(e[i], e_i)
+
+
+@pytest.mark.parametrize("out_f64", [False, True])
+def test_fleet_pairs_ref_equals_stacked_singles(out_f64):
+    _, _, ta, tb = _fleet_operands(5, 3, 30, 300, 17)
+    a_sl, b_sl, ea, eb = thpmm.slice_operands(ta, tb)
+    assert a_sl.shape == (3, 6, 30, 512) and b_sl.shape == (3, 6, 512, 17)
+    assert ea.shape == (3, 30, 1) and eb.shape == (3, 1, 17)
+    got = thpmm.hpmm_pairs(a_sl, b_sl, 5, ea, eb, out_f64=out_f64)
+    for i in range(3):
+        want = thpmm.pairs_ref(a_sl[i], b_sl[i], 5, ea[i], eb[i], out_f64=out_f64)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g[i], w)
+    ch, cl = thpmm.matmul_sliced_ref(a_sl, b_sl, 5)
+    assert torch.equal(ch[1], thpmm.matmul_sliced_ref(a_sl[1], b_sl[1], 5)[0])
+
+
+def test_fleet_hpmm_pairs_rejects_mismatched_fleets():
+    a_sl = torch.zeros((2, 6, 4, 256), dtype=torch.bfloat16)
+    b_sl = torch.zeros((3, 6, 256, 3), dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        thpmm.hpmm_pairs(a_sl, b_sl, 5)
+    with pytest.raises(ValueError):
+        thpmm.hpmm_pairs(a_sl, b_sl[0], 5)
+    ea = torch.zeros((2, 4, 1), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        thpmm.hpmm_pairs(a_sl, b_sl[:2], 5, ea, torch.zeros((1, 3), dtype=torch.int32))
+
+
+@pytest.mark.cuda
+def test_fleet_kernels_bitwise_equal_single_launches_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(12)
+    fs = torch.as_tensor(rng.standard_normal((4, 501, 500)), device="cuda")
+    u = torch.as_tensor(rng.standard_normal((4, 500, 500)), device="cuda")
+    for a, b in ((fs, u), (fs, fs.transpose(1, 2))):
+        k0, s0 = thpmm.KERNEL_LAUNCHES, thpmm.SLICE_LAUNCHES
+        c = thpmm.hpmm(a, b)
+        assert (thpmm.KERNEL_LAUNCHES - k0, thpmm.SLICE_LAUNCHES - s0) == (1, 2)
+        singles = torch.stack([thpmm.hpmm(a[i], b[i]) for i in range(4)])
+        a_sl, b_sl, ea, eb = (t.cpu() for t in thpmm.slice_operands(a, b))
+        torch.cuda.synchronize()
+        assert torch.equal(c, singles)
+        assert torch.equal(c.cpu(), thpmm.pairs_ref(a_sl, b_sl, 5, ea, eb, out_f64=True))
