@@ -91,6 +91,30 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              of K1 and K1s, at the gpp fleet's shapes, bitwise against their N
              single launches and their plain versions, and times them.)
 
+ 10. mesh1   the mesh path (hdsdp_tpu_torch.parallel) on a real NCCL group of
+             one rank in this process: HDSDPSolver(prob, mesh=make_mesh("cuda:0"))
+             solves maxG51 twice (the diag bucket, row-sharded, the distributed
+             Cholesky padding 1000 to 1024; the two must repeat bit for bit),
+             control11 (one group of three blocks: the slot-partitioned system,
+             reduce_scatter), gpp500 with kkt_hp="on" (the slot bucket's rows
+             through K1/K1s) and its two witnesses under the exact ratio test
+             (kkt_hp off and on, log rows held too; see MESH_ROWS), theta6
+             (the support bucket at m = 4375: the row-sharded CG, and PSDP
+             with it) and maxG51 with kkt_mode="free" (the sharded operator
+             matvec), each held to the JAX package's own
+             mesh run of one device (MESH_REFS: status, d_obj 1e-7, DIMACS max
+             <= max(1e-6, 10x the reference's)); the group is destroyed after.
+ 11. mesh4   four ranks on the one card over gloo (parallel.mesh.spawn, every
+             rank on cuda:0): maxG51, control11, gpp500 (kkt_hp="on": K1/K1s at
+             the row-shard shapes), the two gpp500 witnesses and
+             parallel.dryrun; every rank must end on the same y and d_obj bit
+             for bit, and each solve is held to the JAX
+             package's mesh run of four devices (status, d_obj 1e-7).  Both mesh
+             phases print each collective's count per iteration.
+             (The kernel phase also holds K1 and K1s at the 4-rank row-shard
+             shapes of gpp500, [126, 500] x [500, 500] and [126, 500] x [500,
+             501], bitwise against their plain versions, and times them.)
+
 The last lines are the kernel table as JSON, the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}.
 """
@@ -196,6 +220,84 @@ ENDATA
 """
 RANGED_OBJ = -6.5  # 3 <= x1 + 2 x2 <= 7, hand-computed optimum
 THREADS_REPEAT = ("theta6", "gpp500")  # solved again under OMP_NUM_THREADS=2
+
+# The mesh phases' references: (instance, extra overrides, ranks) ->
+# (status, iterations, d_obj, DIMACS max) of the JAX package's mesh run,
+# HDSDPSolver(prob, mesh=make_mesh(ranks)) on ranks virtual CPU devices:
+# `JAX_PLATFORMS=cpu python tests/jax_reference.py NAME --mesh RANKS [--kw
+# '{"kkt_mode": "free"}']`, all eight at once on the card's 8-core host
+# (199-1221 s each).  Held: status, d_obj 1e-7 relative, DIMACS max <=
+# max(1e-6, 10x the reference's); the iterations are printed.  The JAX
+# row-sharded build never passes kkt_hp on (hdsdp_tpu/parallel/schur.py:476-479),
+# so its gpp500 reference assembles M in plain f64 where the port's ranks run
+# K1/K1s; its gpp500 runs end at max_iter (500) and are made optimal by their
+# DIMACS check (a Jacobi-PCG re-solve on a mesh: the DIMACS 1e-6 of the
+# single-device phases cannot hold there, in either package).
+MESH_REFS = {
+    ('maxG51', '', 1): ('PRIMAL_DUAL_OPTIMAL', 33, -261.4270223134376, 8.618257426042047e-08),
+    ('control11', '', 1): ('PRIMAL_DUAL_OPTIMAL', 30, -22.03302972951802, 7.995572783853506e-10),
+    ('gpp500', '', 1): ('PRIMAL_DUAL_OPTIMAL', 500, -1940.485067952938, 4.7604184055905025e-05),
+    ('theta6', '', 1): ('PRIMAL_DUAL_OPTIMAL', 27, -63.610704336543435, 0.0008684384299383493),
+    ('maxG51', 'free', 1): ('PRIMAL_DUAL_OPTIMAL', 33, -261.4270223134194, 3.3103163384423075e-06),
+    ('maxG51', '', 4): ('PRIMAL_DUAL_OPTIMAL', 33, -261.4270223134242, 8.92521124205043e-09),
+    ('control11', '', 4): ('PRIMAL_DUAL_OPTIMAL', 30, -22.03302972951802, 5.793197099915196e-10),
+    ('gpp500', '', 4): ('PRIMAL_DUAL_OPTIMAL', 500, -1940.4850680369414, 0.0004917027598488851),
+}
+# The gpp500 witnesses: the JAX row-sharded build ignores kkt_hp, and
+# gpp500's phase B under the f32 Lanczos ratio test is a crawl of steps
+# near 1e-3 that ends on the fourth step below 1e-3 or at max_iter, a
+# count of rare events (one device: 191 iterations in the JAX package,
+# 288 in the port; a mesh of one: 500 in both, on the CPU).  Under the
+# exact ratio test the two packages, on one device or on a mesh, follow
+# one trajectory to 1e-12 for six iterations and part as rounding grows
+# (1e-9 by iteration 12).  So the port's mesh is held there, beside the
+# usual holds, to the reference's log rows up to iteration 8 (d_obj and
+# mu within MESH_ROWS_TOL): with kkt_hp off ("exact_off") to the JAX mesh
+# run of one device, and with kkt_hp on (K1/K1s on the ranks' rows,
+# "exact") to the JAX package's single-device host loop, the one JAX run
+# that assembles M through hpmm.  Their status and d_obj are held to the
+# JAX mesh run of the same overrides and ranks, as above.  Their DIMACS
+# is printed, not held: on a mesh it comes from the Jacobi-PCG check,
+# which cannot carry gpp500 (the JAX mesh run of one device gives 3.5e-04
+# with kkt_hp off and 2.3e-05 with it on at the same final iterate, the
+# port's 6.9e-03 on the CPU).  `tests/jax_reference.py gpp500 [--mesh N]
+# --rows 8 --kw '{"ratio_test": "exact"[, "kkt_hp": "off"]}'` on an 8-core
+# x86 CPU; `tests/mesh_trace.py` solves the same on the port and compares
+# whole logs.
+MESH_REFS.update({
+    ('gpp500', 'exact_off', 1): ('PRIMAL_DUAL_OPTIMAL', 46, -1940.4850587882843, 0.0003545750800426915),
+    ('gpp500', 'exact_off', 4): ('PRIMAL_DUAL_OPTIMAL', 44, -1940.485058790709, 2.320522997180106e-05),
+    ('gpp500', 'exact', 1): ('PRIMAL_DUAL_OPTIMAL', 46, -1940.4850587882843, 2.3205284273957847e-05),
+    ('gpp500', 'exact', 4): ('PRIMAL_DUAL_OPTIMAL', 44, -1940.485058790709, 2.320522151746321e-05),
+})
+MESH_ROWS = {  # (method, iteration, d_obj, mu) up to iteration 8
+    "exact_off": [
+        ('infeas', 1, -2855104.9950857507, 270.46271117676434),
+        ('infeas', 2, -2404947.3704469153, 13778.801144663994),
+        ('potential', 2, -744557.4174162813, 2745.2500374098704),
+        ('potential', 3, -39310.91080904386, 480.2703460537638),
+        ('potential', 4, -35416.09172762768, 69.18709334793009),
+        ('potential', 5, -3742.6682332502487, 13.788491902316057),
+        ('potential', 6, -2082.947209476749, 2.1800497795939333),
+        ('potential', 7, -2346.2124033303917, 4.803403876517422),
+        ('potential', 8, -2845.168378965487, 5.318395623072791),
+    ],
+    "exact": [
+        ('infeas', 1, -2855104.995085733, 270.46271117676434),
+        ('infeas', 2, -2404947.3704468985, 13778.801144663992),
+        ('potential', 2, -744557.4174161911, 2745.2500374097754),
+        ('potential', 3, -39310.910809038265, 480.2703460533204),
+        ('potential', 4, -35416.09172616633, 69.18709334551774),
+        ('potential', 5, -3742.6682331898737, 13.788491901264786),
+        ('potential', 6, -2082.9472094759217, 2.180049778772681),
+        ('potential', 7, -2346.212403256747, 4.803403872498037),
+        ('potential', 8, -2845.168378600338, 5.318395618151284),
+    ],
+}
+MESH_ROWS_TOL = 1e-8
+MESH_KW = {"": {}, "free": {"kkt_mode": "free"}, "exact": {"ratio_test": "exact"},
+           "exact_off": {"ratio_test": "exact", "kkt_hp": "off"}}
+MESH_TIMEOUT = 120.0  # seconds, every collective of a mesh phase
 
 # The batch phase's fleets: (name, generator in models/synthetic.py, its
 # arguments, fleet size, overrides); instance s is generated with seed=s.
@@ -377,9 +479,14 @@ def _kernel_phase(hpmm, hpmm_cases, dev):
     fs = torch.as_tensor(rng.standard_normal((1, 501, 500)), device=dev)
     u = torch.as_tensor(rng.standard_normal((1, 500, 500)), device=dev)
     fu = torch.as_tensor(rng.standard_normal((1, 501, 500)), device=dev)
+    # ... and the same two products on one rank's rows of a 4-rank mesh
+    # (m_pad = 504, 126 rows a rank: parallel.schur.row_view takes Fs[:, r0:r1]
+    # for the row side; the column side is the whole Fs)
     cases = [
         ("FU [501,500]@[500,500]", fs.reshape(501, 500), u[0]),
         ("pair [501,500]@[500,501]", fu[0], fs[0].T),
+        ("FU rows [126,500]@[500,500]", fs[:, 126:252].reshape(126, 500), u[0]),
+        ("pair rows [126,500]@[500,501]", fu[0, 126:252], fs[0].T),
         ("ragged [37,300]@[300,45]", *operands(37, 300, 45)),
         ("wild [96,96]@[96,96]", *operands(96, 96, 96, wild=True)),
     ]
@@ -412,7 +519,7 @@ def _kernel_phase(hpmm, hpmm_cases, dev):
         _require(rel < 1e-12, f"hpmm relative error {rel} at {name}")
         worst = max(worst, err)
         if name.startswith(("FU", "pair")):
-            key = name.split()[0]
+            key = "_".join(name.split()[:2]) if " rows " in name else name.split()[0]
             m, k = a.shape
             n = b.shape[1]
             t = {
@@ -1278,8 +1385,8 @@ def main() -> int:
     f_err, f_err_slice, fleet_times = _fleet_kernel_phase(hpmm, dev)
     max_err, max_err_slice = max(max_err, f_err), max(max_err_slice, f_err_slice)
 
-    launches, slice_launches, wall = _slice_phase(torch, hpmm, solve_sdpa_file,
-                                                  write_sdpa, gpp_sdpa)
+    launches, slice_launches, wall, gpp_d_obj = _slice_phase(torch, hpmm, solve_sdpa_file,
+                                                             write_sdpa, gpp_sdpa)
 
     # -- the other families at SDPLIB size, default parameters -------------
     dense_d_obj = _family_phase(torch, solve_sdpa_file, instances, hpmm)
@@ -1301,8 +1408,14 @@ def main() -> int:
     # -- fleets of same-shape instances: solve_batch -----------------------
     batch_launches = _batch_phase(torch, hpmm, profiled_solve)
 
+    # -- the mesh path: one NCCL rank here, then four gloo ranks ----------
+    mesh1 = _mesh1_phase(instances, dict(dense_d_obj, gpp500=gpp_d_obj))
+    mesh1_launches = mesh1[("gpp500", "")]["launches"]
+    mesh4_launches = _mesh4_phase(instances, mesh1)
+
     _summary(torch, times, fleet_times, max_err, max_err_slice, wall,
-             (launches, slice_launches), fused_launches, batch_launches)
+             (launches, slice_launches), fused_launches, batch_launches,
+             mesh1_launches, mesh4_launches)
     return 0
 
 
@@ -1352,11 +1465,157 @@ def _slice_phase(torch, hpmm, solve_sdpa_file, write_sdpa, gpp_sdpa):
     if not (rg.status == rc.status == "PRIMAL_DUAL_OPTIMAL"
             and abs(rg.n_iters - rc.n_iters) <= 1 and rel_small <= 1e-7):
         raise AssertionError("small solve on the card disagrees with the host")
-    return launches, slice_launches, wall
+    return launches, slice_launches, wall, r.d_obj
+
+
+def _mesh_line(phase, name, kw, ranks, r, ref, solo_d_obj=None, mesh1_d_obj=None):
+    """Print one mesh solve as JSON beside its JAX mesh reference."""
+    st = r["stats"]
+    it = max(r["iterations"], 1)
+    print(json.dumps({
+        "phase": phase, "instance": name, "overrides": MESH_KW[kw], "ranks": ranks,
+        "device": r["device"], "cones": r["cones"], "status": r["status"],
+        "jax_mesh_status": ref[0], "iterations": r["iterations"], "jax_mesh_iterations": ref[1],
+        "d_obj": r["d_obj"], "jax_mesh_d_obj": ref[2],
+        "rel_d_obj_err": abs(r["d_obj"] - ref[2]) / abs(ref[2]),
+        "log_rows_rel_err": _rows_err(r["log_rows"], MESH_ROWS[kw]) if kw in MESH_ROWS else None,
+        "dimacs_max": float(abs(r["dimacs"]).max()), "jax_mesh_dimacs_max": ref[3],
+        "solo_host_loop_d_obj": solo_d_obj, "mesh1_d_obj": mesh1_d_obj,
+        "every_rank_same_y_and_obj": bool(r["same_y"] and r["same_obj"]),
+        "wall_s": r["wall_s"], "peak_device_bytes_rank0": r["peak_bytes"],
+        "factor": {k: st.get(k, 0) for k in ("shchol_factors", "shcg_factors", "shcg_iters",
+                                             "opcg_iters", "n_factor", "n_solve")},
+        "psdp_runs": st.get("psdp_runs", 0), "psdp_ended_the_solve": r["psdp"],
+        "kkt_free": r["kkt_free"],
+        "hpmm_launches_rank0": r["launches"],
+        "collectives_per_iteration": {k: v / it for k, v in sorted(r["counts"].items())},
+    }), flush=True)
+
+
+def _rows_err(rows, ref):
+    """The largest relative difference of d_obj and mu between the first
+    len(ref) log rows and the reference's; inf where the rows' (method,
+    iteration) differ or run short."""
+    if len(rows) < len(ref) or any(tuple(a[:2]) != tuple(b[:2]) for a, b in zip(rows, ref)):
+        return float("inf")
+    return max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(rows, ref) for k in (2, 3))
+
+
+def _mesh_holds(r, ref, name, kw=""):
+    """The holds every mesh solve meets against its JAX mesh reference;
+    the gpp500 witnesses (kw "exact", "exact_off") their log rows in place
+    of the DIMACS max."""
+    dmax = float(abs(r["dimacs"]).max())
+    holds = {
+        "status": r["status"] == ref[0],
+        "d_obj": abs(r["d_obj"] - ref[2]) <= 1e-7 * abs(ref[2]),
+        "device": r["device"].startswith("cuda"),
+        "same_on_every_rank": bool(r["same_y"] and r["same_obj"]),
+        "host_loop": r["stats"]["fused"] is False,
+    }
+    if kw in MESH_ROWS:
+        holds["log_rows"] = _rows_err(r["log_rows"], MESH_ROWS[kw]) <= MESH_ROWS_TOL
+    else:
+        holds["dimacs"] = dmax <= max(1e-6, 10.0 * ref[3])
+    if name == "gpp500":
+        hp = MESH_KW[kw].get("kkt_hp", "on") == "on"
+        k1, k1s = r["launches"]
+        holds["k1_k1s"] = (k1 > 0 and k1s == 2 * k1) if hp else k1 == k1s == 0
+    return holds
+
+
+def _mesh1_phase(instances, solo_d_obj):
+    """The mesh path on a real NCCL group of one rank (this process); the
+    group is destroyed after.  Returns {(name, kw): solve record}."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from hdsdp_tpu_torch.parallel import run
+    from hdsdp_tpu_torch.parallel.mesh import free_port, init_world, make_mesh
+
+    init_world(0, 1, "nccl", free_port(), timeout=MESH_TIMEOUT)
+    out = {}
+    try:
+        mesh = make_mesh("cuda:0")
+        print(f"[mesh1] {mesh}", flush=True)
+        for name, kw, repeat in (("maxG51", "", 2), ("control11", "", 1), ("gpp500", "", 1),
+                                 ("gpp500", "exact", 1), ("gpp500", "exact_off", 1),
+                                 ("theta6", "", 1), ("maxG51", "free", 1)):
+            gen, kwargs, over = instances.INSTANCES[name]
+            res = run.solve(mesh, gen, kwargs, dict(over, **MESH_KW[kw]), repeat=repeat)
+            runs = res if repeat > 1 else [res]
+            ref = MESH_REFS[(name, kw, 1)]
+            for r in runs:
+                _mesh_line("mesh1", name, kw, 1, r, ref,
+                           solo_d_obj=None if kw.startswith("exact") else solo_d_obj[name])
+                checks = _mesh_holds(r, ref, name, kw)
+                st = r["stats"]
+                if name == "maxG51" and not kw:
+                    checks["distributed_cholesky"] = st.get("shchol_factors", 0) > 0
+                if name == "control11":
+                    checks["slot_partitioned"] = (r["cones"] == "ShardedConeSystem"
+                                                  and r["counts"].get("reduce_scatter", 0) > 0)
+                if name == "theta6":
+                    checks["row_sharded_cg"] = (st.get("shcg_factors", 0) > 0
+                                                and st.get("shcg_iters", 0) > 0)
+                    checks["psdp"] = st.get("psdp_runs", 0) > 0
+                if kw == "free":
+                    checks["operator"] = r["kkt_free"] and st.get("opcg_iters", 0) > 0
+                if not all(checks.values()):
+                    raise AssertionError(f"[mesh1] {name} {kw}: checks failed: {checks}")
+            if repeat > 1:
+                a, b = runs
+                same = (a["d_obj"] == b["d_obj"] and a["iterations"] == b["iterations"]
+                        and np.array_equal(a["y"], b["y"]))
+                print(f"[mesh1] {name} solved twice: d_obj {a['d_obj']!r} / {b['d_obj']!r}, "
+                      f"iterations {a['iterations']} / {b['iterations']}, y bit-equal: {same}",
+                      flush=True)
+                if not same:
+                    raise AssertionError(f"[mesh1] {name}: two solves differ")
+            out[(name, kw)] = runs[0]
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _mesh4_phase(instances, mesh1):
+    """Four ranks on the one card over gloo: five solves (three instances
+    and the two gpp500 witnesses) and the dry run in one spawned world.
+    Returns gpp500's rank-0 (K1, K1s) launches."""
+    from hdsdp_tpu_torch.parallel import run
+    from hdsdp_tpu_torch.parallel.mesh import spawn
+
+    solves = (("maxG51", ""), ("control11", ""), ("gpp500", ""), ("gpp500", "exact"),
+              ("gpp500", "exact_off"))
+    todo = []
+    for name, kw in solves:
+        gen, kwargs, over = instances.INSTANCES[name]
+        todo.append(("solve", dict(gen=gen, kwargs=kwargs, overrides=dict(over, **MESH_KW[kw]))))
+    todo.append(("dryrun", {}))
+    t0 = time.perf_counter()
+    res = spawn(run.calls, 4, "gloo", "cuda:0", todo, timeout=MESH_TIMEOUT)
+    print(f"[mesh4] world of 4 gloo ranks on cuda:0: {time.perf_counter() - t0:.1f} s for "
+          f"{len(solves)} solves and the dry run, start-up included", flush=True)
+    for (name, kw), r in zip(solves, res):
+        ref = MESH_REFS[(name, kw, 4)]
+        _mesh_line("mesh4", name, kw, 4, r, ref, mesh1_d_obj=mesh1[(name, kw)]["d_obj"])
+        checks = _mesh_holds(r, ref, name, kw)
+        checks["ranks"] = r["size"] == 4
+        if name == "control11":
+            checks["slot_partitioned"] = r["cones"] == "ShardedConeSystem"
+        if not all(checks.values()):
+            raise AssertionError(f"[mesh4] {name}: checks failed: {checks}")
+    dry = res[-1]
+    print(f"[mesh4] dry run: {json.dumps(dry)}", flush=True)
+    launches = res[solves.index(("gpp500", ""))]["launches"]
+    if not (max(dry["row_sharded"]["rows_per_rank"]) < dry["row_sharded"]["m"]
+            and max(dry["slot_sharded"]["rows_per_rank"]) < dry["slot_sharded"]["m"]):
+        raise AssertionError("[mesh4] a rank of the dry run held every row of M")
+    return launches
 
 
 def _summary(torch, times, fleet_times, max_err, max_err_slice, wall, slice_launches,
-             fused_launches, batch_launches):
+             fused_launches, batch_launches, mesh1_launches, mesh4_launches):
     """The kernel table line, the card's line and the contract line."""
     launches, slice_launches = slice_launches
     # K1 at the pair shape; K1s as the mean of the four operand launches of
@@ -1364,6 +1623,7 @@ def _summary(torch, times, fleet_times, max_err, max_err_slice, wall, slice_laun
     # as a transposed view), its plain version and bound likewise; each
     # max_abs_err is the worst difference met in the kernel phase
     tf, tp = times["FU"], times["pair"]
+    tfr, tr = times["FU_rows"], times["pair_rows"]
     kernels = [{
         "name": "hpmm_pairs",
         "route": "cuda",
@@ -1384,7 +1644,13 @@ def _summary(torch, times, fleet_times, max_err, max_err_slice, wall, slice_laun
         "fleet_bound_ms": fleet_times["pair"]["pairs_bound"][0],
         "fleet_library_ms": fleet_times["pair"]["matmul"],
         "launches_by_path": {"slice (host loop)": launches, "fused": fused_launches[0],
-                             "batch (gpp fleet)": batch_launches[0]},
+                             "batch (gpp fleet)": batch_launches[0],
+                             "mesh1 (gpp500, NCCL, 1 rank)": mesh1_launches[0],
+                             "mesh4 (gpp500, gloo, rank 0 of 4)": mesh4_launches[0]},
+        # one rank's rows of the pair product on a 4-rank mesh
+        "row_shard": {"shape": "[126,500]@[500,501]", "ms": tr["pairs_f64"],
+                      "plain_ms": tr["pairs_plain"], "bound_ms": tr["pairs_bound"][0],
+                      "library_ms": tr["matmul"]},
     }, {
         "name": "hpmm_slice",
         "route": "cuda",
@@ -1406,7 +1672,17 @@ def _summary(torch, times, fleet_times, max_err, max_err_slice, wall, slice_laun
         "fleet_bound_ms": sum(t[k][0] for t in fleet_times.values()
                               for k in ("slice_a_bound", "slice_b_bound")) / 4,
         "launches_by_path": {"slice (host loop)": slice_launches, "fused": fused_launches[1],
-                             "batch (gpp fleet)": batch_launches[1]},
+                             "batch (gpp fleet)": batch_launches[1],
+                             "mesh1 (gpp500, NCCL, 1 rank)": mesh1_launches[1],
+                             "mesh4 (gpp500, gloo, rank 0 of 4)": mesh4_launches[1]},
+        # the four operand launches of one rank's two products on a 4-rank mesh
+        "row_shard": {
+            "shape": "[126,500] row blocks of FU and pair",
+            "ms": (tfr["slice_a"] + tfr["slice_b"] + tr["slice_a"] + tr["slice_b"]) / 4,
+            "plain_ms": (tfr["slice_a_plain"] + tfr["slice_b_plain"]
+                         + tr["slice_a_plain"] + tr["slice_b_plain"]) / 4,
+            "bound_ms": (tfr["slice_a_bound"][0] + tfr["slice_b_bound"][0]
+                         + tr["slice_a_bound"][0] + tr["slice_b_bound"][0]) / 4},
     }]
     print(f"[summary] whole hpmm at the pair shape: {tp['hpmm_device']:.4f} ms on the device, "
           f"{tp['hpmm']:.4f} ms per eager call; f64 torch.matmul {tp['matmul']:.4f} / "

@@ -445,30 +445,84 @@ def _dense_rhs(ga: GroupArrays, U, asinv, trsas):
     return asinv, trsas, B
 
 
-def _dense_m_single(ga: GroupArrays, B: torch.Tensor, Xc: torch.Tensor, m: int):
+def _dense_cross(ga: GroupArrays, B: torch.Tensor) -> torch.Tensor:
+    """Xc[d, i]: the dense coefficient d's congruence B_d = U A_d U against
+    the low-rank part of constraint i, [md, rows of ga]."""
+    kind = bucket(ga)
+    if kind == "diag":
+        # w_i B_d[p_i, p_i]
+        return ga.dw.unsqueeze(-2) * _diag_take(ga, torch.diagonal(B, dim1=-2, dim2=-1))
+    if kind == "support":
+        # w_ji v' B_d v at each support
+        return torch.stack([_support_quad(ga, B[..., d, :, :])
+                            for d in range(B.shape[-3])], dim=-2)
+    # lams_j[a] Fs_j[a]^T B_d Fs_j[a]
+    return torch.stack([_slot_quad(ga, _fs_times(ga, B[..., d, :, :]))
+                        for d in range(B.shape[-3])], dim=-2)
+
+
+def _dense_m(ga: GroupArrays, B: Optional[torch.Tensor], col: Optional[GroupArrays],
+             Bc: torch.Tensor, m: int) -> torch.Tensor:
     """M terms of a single-block group's dense bucket: dense x dense (all
-    pairs interact) and the cross rows Xc[d, i] against the low-rank part
-    of constraint i, both symmetric."""
-    md = ga.Ad.shape[-3]
-    lead = B.shape[:-3]
-    Mdd = B.reshape(lead + (md, -1)) @ ga.Ad.reshape(lead + (md, -1)).mT  # [md, md]
-    cols = torch.zeros(lead + (md, m), dtype=B.dtype, device=B.device)
-    if is_fleet(ga):
-        cols.scatter_add_(-1, ga.didx[:, None, :].expand(Mdd.shape), Mdd)
-    else:
-        cols.index_add_(1, ga.didx, Mdd)
-    Mx = _scatter_rows(ga.didx, Xc, m)
-    return _scatter_rows(ga.didx, cols, m) + Mx + Mx.mT
+    pairs interact) and the cross terms Xc[d, i] of dense coefficient d
+    against the low-rank part of constraint i, both symmetric.
+
+    ``col`` None: the whole [m, m] of the group ``ga`` (Bc is B).  Else the
+    rows of a row view ``ga`` against the whole group ``col``, entry for
+    entry those rows of the whole: ``ga`` carries the view's own dense
+    coefficients (didx in view coordinates, B their congruences, None if
+    it has none) and Bc the congruences of all of ``col``'s.  The
+    transposed cross term is read from the view's own rows, so no other
+    rows are needed."""
+    c = ga if col is None else col
+    rows = m if col is None else ga.lams.shape[-1]
+    lead = Bc.shape[:-3]
+    fleet = is_fleet(ga)
+
+    def add_cols(out, X):  # out[..., :, c.didx[e]] += X[..., :, e]
+        if fleet:
+            return out.scatter_add_(-1, c.didx[:, None, :].expand(X.shape), X)
+        return out.index_add_(1, c.didx, X)
+
+    Xr = _dense_cross(ga, Bc)  # [md, rows]: every dense coefficient x the rows
+    MxT = add_cols(torch.zeros(lead + (rows, m), dtype=Bc.dtype, device=Bc.device), Xr.mT)
+    if B is None:
+        return MxT
+    md_v, md = B.shape[-3], Bc.shape[-3]
+    Mdd = B.reshape(lead + (md_v, -1)) @ c.Ad.reshape(lead + (md, -1)).mT  # [md_v, md]
+    cols = add_cols(torch.zeros(lead + (md_v, m), dtype=B.dtype, device=B.device), Mdd)
+    Mx = _scatter_rows(ga.didx, Xr if col is None else _dense_cross(col, B), rows)
+    return _scatter_rows(ga.didx, cols, rows) + Mx + MxT
+
+
+def _dense_m_view(ga: GroupArrays, U: torch.Tensor, B, col: Optional[GroupArrays], m: int):
+    """The dense bucket's M terms: the whole [m, m] of a group (col None)
+    or the rows of a row view against the whole group ``col``; None where
+    there is no dense coefficient."""
+    if col is None:
+        return None if B is None else _dense_m(ga, B, None, B, m)
+    if not col.Ad.shape[-3]:
+        return None
+    Bc, _ = _dense_congruence(col, U)
+    return _dense_m(ga, B, col, Bc, m)
 
 
 def _slot_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool,
-                hp: bool = False) -> SchurOut:
+                hp: bool = False, col: Optional[GroupArrays] = None) -> SchurOut:
     """Slot-major Schur contribution (g == 1).
 
     ``hp`` routes the two large product families (FU = Fs @ U and the pair
     products Fs_j U Fs_k^T) through the Ozaki matmul ops.hpmm (kernel K1
     on the card, a fleet's products as one launch each); the Hadamard
-    squares, scalings and the dense bucket stay f64."""
+    squares, scalings and the dense bucket stay f64.
+
+    ``col``: the whole group, when ``ga`` is a row view of it (the
+    constraint-indexed arrays cut to a block of rows, see
+    parallel.schur.row_view); M is then the view's rows [rows, m], every
+    column-side operand read from ``col``.  The (k, j) partner of a slot
+    pair is recomputed row-major instead of transposed, so the rows never
+    need another block's: under ``hp`` its products round on their own,
+    and the rows agree with the whole M to ~2^-45 relative."""
     r, m_, n = ga.Fs.shape[-3:]
     lead = ga.Fs.shape[:-3]
     U0 = U[..., 0, :, :]
@@ -483,23 +537,32 @@ def _slot_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool,
 
     M = None
     if with_m:
-        M = torch.zeros(lead + (m, m), dtype=U.dtype, device=U.device)
+        c = ga if col is None else col
+        M = torch.zeros(lead + (m_, m), dtype=U.dtype, device=U.device)
+
+        def pair(j, k):
+            FUj, Fk = FU[..., j, :, :], c.Fs[..., k, :, :]
+            T = hpmm.hpmm(FUj, Fk.mT) if hp else FUj @ Fk.mT
+            return (ga.lams[..., j, :, None] * c.lams[..., k, None, :]) * (T * T)
+
         for j in range(r):
             for k in range(j, r):
-                FUj, Fk = FU[..., j, :, :], ga.Fs[..., k, :, :]
-                T = hpmm.hpmm(FUj, Fk.mT) if hp else FUj @ Fk.mT
-                T = (ga.lams[..., j, :, None] * ga.lams[..., k, None, :]) * (T * T)
-                M = M + T if k == j else M + T + T.mT
-        if B is not None:
-            # dense x low-rank cross: lams_j[a] Fs_j[a]^T B_i Fs_j[a]
-            Xc = torch.stack([_slot_quad(ga, _fs_times(ga, B[..., d, :, :]))
-                              for d in range(B.shape[-3])], dim=-2)  # [md, m]
-            M = M + _dense_m_single(ga, B, Xc, m)
+                T = pair(j, k)
+                if k == j:
+                    M = M + T
+                elif col is None:
+                    M = M + T + T.mT
+                else:
+                    M = M + T + pair(k, j)
+        D = _dense_m_view(ga, U, B, col, m)
+        if D is not None:
+            M = M + D
 
     return SchurOut(M=M, asinv=asinv, trSAS=trsas, trU=_trace(U0, is_fleet(ga)))
 
 
-def _diag_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool) -> SchurOut:
+def _diag_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool,
+                col: Optional[GroupArrays] = None) -> SchurOut:
     """Diagonal rank-1 bucket: A_i = w_i e_{p_i} e_{p_i}^T, so
 
         M_ij    = w_i w_j (U_{p_i p_j})^2          (gather + square)
@@ -509,7 +572,9 @@ def _diag_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool) -> Schur
     O(m^2 + n^2) per build against the generic slot path's O(n m^2) (ref
     M2 rank-one quadforms on 1-nnz eigenvectors, hdsdp_conic_sdp.c:687-778).
     Under the identity map (length-0 dpos) no gather runs.  U need only
-    be symmetric (PSDP passes X)."""
+    be symmetric (PSDP passes X).  ``col``: the whole group when ``ga`` is
+    a row view of it (see _slot_schur); its rows equal the whole M's bit
+    for bit."""
     fleet = is_fleet(ga)
     U0 = U[..., 0, :, :]
     w = ga.dw
@@ -521,28 +586,66 @@ def _diag_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool) -> Schur
 
     M = None
     if with_m:
-        if ident:
-            Usub = U0
-        elif fleet:
-            Usub = U0[_fleet_ar(ga.dpos)[..., None], ga.dpos[:, :, None], ga.dpos[:, None, :]]
+        if col is not None:
+            # a row view holds its rows' positions (never the identity map)
+            Usub = U0[ga.dpos]
+            if col.dpos.shape[-1]:
+                Usub = Usub[:, col.dpos]
+            M = (w[:, None] * col.dw[None, :]) * (Usub * Usub)
         else:
-            Usub = U0[ga.dpos][:, ga.dpos]
-        M = (w[..., :, None] * w[..., None, :]) * (Usub * Usub)
-        if B is not None:
-            # dense x diag cross: w_i B_d[p_i, p_i]
-            Xc = w.unsqueeze(-2) * _diag_take(ga, torch.diagonal(B, dim1=-2, dim2=-1))
-            M = M + _dense_m_single(ga, B, Xc, m)
+            if ident:
+                Usub = U0
+            elif fleet:
+                Usub = U0[_fleet_ar(ga.dpos)[..., None], ga.dpos[:, :, None], ga.dpos[:, None, :]]
+            else:
+                Usub = U0[ga.dpos][:, ga.dpos]
+            M = (w[..., :, None] * w[..., None, :]) * (Usub * Usub)
+        D = _dense_m_view(ga, U, B, col, m)
+        if D is not None:
+            M = M + D
 
     return SchurOut(M=M, asinv=asinv, trSAS=trsas, trU=_trace(U0, fleet))
 
 
-def _support_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool) -> SchurOut:
+def _support_pair(U0, Pr, Vr, Pc, Vc, fleet: bool) -> torch.Tensor:
+    """(Fs_j U Fs_k^T) over two supports, [rows, cols]: the row side
+    (Pr, Vr [.., rows, c]) gathers rows of U, the column side (Pc, Vc)
+    columns of the row-gathered [rows, n] block, c^2 Hadamard terms."""
+    c = Pr.shape[-1]
+    T = torch.zeros(Pr.shape[:-1] + Pc.shape[-2:-1], dtype=U0.dtype, device=U0.device)
+    for a in range(c):
+        G = _rows(U0, Pr[..., :, a], fleet)  # [rows, n]
+        for b in range(c):
+            T = T + (Vr[..., :, a, None] * Vc[..., None, :, b]) * _take_last(G, Pc[..., :, b], fleet)
+    return T
+
+
+def _support_pair_t(U0, Pr, Vr, Pc, Vc) -> torch.Tensor:
+    """The transpose of ``_support_pair(U0, Pc, Vc, Pr, Vr)``, entry for
+    entry, computed on the rows (Pr, Vr) alone: the same terms, multiplied
+    and added in the same order, the entries of U read where that call
+    reads them."""
+    c = Pr.shape[-1]
+    Ut = U0.mT
+    Gs = [Ut[Pr[:, b]] for b in range(c)]  # Gs[b][i, q] = U[q, Pr[i, b]]
+    T = torch.zeros((Pr.shape[0], Pc.shape[0]), dtype=U0.dtype, device=U0.device)
+    for a in range(c):
+        for b in range(c):
+            T = T + (Vr[:, b, None] * Vc[None, :, a]) * Gs[b][:, Pc[:, a]]
+    return T
+
+
+def _support_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool,
+                   col: Optional[GroupArrays] = None) -> SchurOut:
     """Bounded-support slot bucket: every eigenvector has <= c nonzeros,
     so every pair product (Fs_j U Fs_k^T)_{i1 i2} = sum_{a,b} v_{j,i1,a}
     v_{k,i2,b} U[p_{j,i1,a}, p_{k,i2,b}] is c^2 gathered m x m Hadamard
     terms, no [m,n] x [n,m] product (ref sparse pairwise M5 kernels,
     hdsdp_sdpdata.c:1711-1963).  One n^3 product (U @ U) gives the trSAS
-    row whatever m is."""
+    row whatever m is.  ``col``: the whole group when ``ga`` is a row view
+    of it (see _slot_schur); the (k, j) partner of a slot pair is then
+    built on the view's rows as the transpose of the (j, k) pair, so its
+    rows equal the whole M's bit for bit."""
     fleet = is_fleet(ga)
     lead = ga.C.shape[:-3]
     U0 = U[..., 0, :, :]
@@ -555,45 +658,44 @@ def _support_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool) -> Sc
 
     M = None
     if with_m:
-        def pair(j, k):
-            # row side gathers rows of U, column side gathers columns of
-            # the row-gathered [m, n] block
-            T = torch.zeros(lead + (m_, m_), dtype=U.dtype, device=U.device)
-            for a in range(c):
-                G = _rows(U0, P[..., j, :, a], fleet)  # [m, n]
-                for b in range(c):
-                    T = T + (V[..., j, :, a, None] * V[..., k, None, :, b]) * _take_last(
-                        G, P[..., k, :, b], fleet)
-            return T
-
-        M = torch.zeros(lead + (m, m), dtype=U.dtype, device=U.device)
+        cg = ga if col is None else col
+        Pc, Vc, wc = cg.spos, cg.sval, cg.lams
+        M = torch.zeros(lead + (m_, m), dtype=U.dtype, device=U.device)
         for j in range(r):
             for k in range(j, r):
-                T = pair(j, k)
-                T = (w[..., j, :, None] * w[..., k, None, :]) * (T * T)
-                M = M + T if k == j else M + T + T.mT
-        if B is not None:
-            # dense x support cross: w_ji v' B_d v at each support
-            Xc = torch.stack([_support_quad(ga, B[..., d, :, :])
-                              for d in range(B.shape[-3])], dim=-2)  # [md, m]
-            M = M + _dense_m_single(ga, B, Xc, m)
+                T = _support_pair(U0, P[..., j, :, :], V[..., j, :, :],
+                                  Pc[..., k, :, :], Vc[..., k, :, :], fleet)
+                T = (w[..., j, :, None] * wc[..., k, None, :]) * (T * T)
+                if k == j:
+                    M = M + T
+                elif col is None:
+                    M = M + T + T.mT
+                else:
+                    Tt = _support_pair_t(U0, P[k], V[k], Pc[j], Vc[j])
+                    M = M + T + (w[k][:, None] * wc[j][None, :]) * (Tt * Tt)
+        D = _dense_m_view(ga, U, B, col, m)
+        if D is not None:
+            M = M + D
 
     return SchurOut(M=M, asinv=asinv, trSAS=trsas, trU=_trace(U0, fleet))
 
 
-def accumulate_m(ga: GroupArrays, Q: torch.Tensor, m: int) -> torch.Tensor:
+def accumulate_m(ga: GroupArrays, Q: torch.Tensor, m: int,
+                 fall: Optional[torch.Tensor] = None) -> torch.Tensor:
     """M[i, j] = sum over blocks b and slots r of i, s of j in b of
     Q[b, r, s], for the flat layout's pairwise terms Q [g, R, R]: first
     the columns of every block by constraint, then the rows of all blocks
     together, each a fixed-order table sum (the JAX package contracts
-    with [g, R, m] one-hot operators instead, O(R^2 m))."""
+    with [g, R, m] one-hot operators instead, O(R^2 m)).  ``fall``: the
+    row table of a share of the slots when Q is [g, R_share, R] (the
+    slot-partitioned mesh assembly, parallel.schur)."""
     g, R = Q.shape[-3], Q.shape[-2]
     lead = Q.shape[:-3]
     k = ga.ftab.shape[-1]
     idx = ga.ftab.reshape(lead + (g, 1, m * k)).expand(lead + (g, R, m * k))
     Qp = torch.nn.functional.pad(Q, (0, 1))
     T = torch.gather(Qp, -1, idx).reshape(lead + (g, R, m, k)).sum(-1)  # [g, R, m]
-    return _table_sum(T.reshape(lead + (g * R, m)).mT, ga.fall).mT
+    return _table_sum(T.reshape(lead + (g * R, m)).mT, ga.fall if fall is None else fall).mT
 
 
 def _flat_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool) -> SchurOut:
@@ -637,18 +739,25 @@ def _flat_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool) -> Schur
 
 
 def group_schur(ga: GroupArrays, U: torch.Tensor, m: int, with_m: bool = True,
-                hp: bool = False) -> SchurOut:
+                hp: bool = False, col: Optional[GroupArrays] = None) -> SchurOut:
     """Schur contribution of one group given U = S^-1 [g,n,n] (or, for
     PSDP, any symmetric U); a fleet's U is [N, g, n, n] and its outputs
     carry the leading axis.  ``hp`` reaches the generic slot-major bucket
-    only; the gather buckets and the flat layout ignore it."""
+    only; the gather buckets and the flat layout ignore it.
+
+    ``col``: the whole group when ``ga`` is a row view of a slot-major
+    group (parallel.schur.row_view: a block of constraint rows, as one
+    rank of a row-sharded mesh holds them); M is then those rows,
+    [rows, m], and the vectors are the rows' entries."""
     kind = bucket(ga)
+    if col is not None and (kind == "flat" or is_fleet(ga)):
+        raise ValueError("column views are for single slot-major groups")
     if kind == "diag":
-        return _diag_schur(ga, U, m, with_m)
+        return _diag_schur(ga, U, m, with_m, col=col)
     if kind == "support":
-        return _support_schur(ga, U, m, with_m)
+        return _support_schur(ga, U, m, with_m, col=col)
     if kind == "slot":
-        return _slot_schur(ga, U, m, with_m, hp=hp)
+        return _slot_schur(ga, U, m, with_m, hp=hp, col=col)
     return _flat_schur(ga, U, m, with_m)
 
 
@@ -709,6 +818,56 @@ def group_schur_matvec(ga: GroupArrays, U: torch.Tensor, v: torch.Tensor,
         return ga.dw * (Usq[ga.dpos] @ _table_sum(wv, ga.dtab))
     W = group_dual(ga, 0.0, 1.0, v, 0.0)
     return group_atx(ga, U @ W @ U, m)
+
+
+def group_atx_rows(ga: GroupArrays, Xr: torch.Tensor, n0: int, m: int) -> torch.Tensor:
+    """The share of A(X) = <A_i, X> that rows [n0, n0 + k) of X hold,
+    given those rows Xr [g, k, n]: summed over a partition of the rows it
+    is ``group_atx(ga, X, m)`` (each entry of X enters <A_i, X> once)."""
+    k, n = Xr.shape[-2], Xr.shape[-1]
+    n1 = n0 + k
+    kind = bucket(ga)
+    if kind == "diag":
+        d = torch.zeros(n, dtype=Xr.dtype, device=Xr.device)
+        d[n0:n1] = torch.diagonal(Xr[0][:, n0:n1])
+        out = ga.dw * _diag_take(ga, d)
+    elif kind == "support":
+        T = torch.zeros((n, n), dtype=Xr.dtype, device=Xr.device)
+        T[n0:n1] = Xr[0]
+        out = _support_quad(ga, T)
+    elif kind == "slot":
+        FX = ga.Fs @ Xr[0].mT  # [r, m, k]: (X_rows u)
+        out = torch.sum(ga.lams * torch.sum(FX * ga.Fs[..., n0:n1], dim=-1), dim=-2)
+    else:
+        FX = ga.F @ Xr.mT  # [g, R, k]
+        q = ga.lam * torch.sum(FX * ga.F[..., n0:n1], dim=-1)
+        out = _table_sum(q.reshape(-1), ga.fall)
+    if ga.Ad.shape[0]:
+        out = _add_dense(ga, out, torch.sum(ga.Ad[:, n0:n1, :] * Xr[ga.dblk], dim=(-1, -2)))
+    return out
+
+
+def group_schur_matvec_rows(ga: GroupArrays, U: torch.Tensor, v: torch.Tensor, m: int,
+                            n0: int, n1: int) -> torch.Tensor:
+    """The share of (M_group @ v) that rows [n0, n1) of U W U give (W =
+    sum_j v_j A_j): the partial of the row-sharded operator matvec, one
+    all-reduce away from ``group_schur_matvec``.  The diagonal rank-1
+    bucket's shortcut takes rows [n0, n1) of U*U the same way."""
+    if n1 <= n0:
+        return torch.zeros(m, dtype=v.dtype, device=v.device)
+    if ga.dpos is not None and ga.Ad.shape[0] == 0:
+        U0 = U[0]
+        n = U0.shape[-1]
+        wv = ga.dw * v
+        Usq = U0[n0:n1] * U0[n0:n1]
+        pos = torch.zeros(n, dtype=v.dtype, device=v.device)
+        if ga.dpos.shape[0] == 0:  # identity map
+            pos[n0:n1] = Usq @ wv
+            return ga.dw * pos
+        pos[n0:n1] = Usq @ _table_sum(wv, ga.dtab)
+        return ga.dw * pos[ga.dpos]
+    W = group_dual(ga, 0.0, 1.0, v, 0.0)
+    return group_atx_rows(ga, U[..., n0:n1, :] @ W @ U, n0, m)
 
 
 def _flat_diag(ga: GroupArrays, Q: torch.Tensor) -> torch.Tensor:
@@ -856,11 +1015,15 @@ def lp_dual(lp: LPArrays, dC, scal, y, dEye) -> torch.Tensor:
     return bcast(dEye, 1) + bcast(scal, 1) * aty + bcast(dC, 1) * lp.c
 
 
-def lp_schur(lp: LPArrays, s: torch.Tensor, m: int, with_m: bool = True) -> SchurOut:
+def lp_schur(lp: LPArrays, s: torch.Tensor, m: int, with_m: bool = True,
+             col: Optional[LPArrays] = None) -> SchurOut:
+    """``col``: the whole LP cone when ``lp`` holds a block of A's rows;
+    M is then those rows of A diag(s^-2) A', [rows, m]."""
     si = 1.0 / s
     asinv = _lp_mv(lp.A, si)
     trsas = _lp_mv(lp.A, si * si)
-    M = (lp.A * (si * si)[..., None, :]) @ lp.A.mT if with_m else None
+    Ac = lp.A if col is None else col.A
+    M = (lp.A * (si * si)[..., None, :]) @ Ac.mT if with_m else None
     return SchurOut(M=M, asinv=asinv, trSAS=trsas, trU=_lp_sum(si))
 
 

@@ -30,10 +30,16 @@ primal refinement (solver.psdp).
 ``DualIPM.solve`` picks its loop as the JAX package does
 (``choose_fused_mode``): by default the fused, device-resident phase
 bodies of solver.fused below the memory budget, and this loop above it,
-in operator mode or with ``fused=False``.
+in operator mode, on a mesh or with ``fused=False``.
 
-Not ported (raise NotImplementedError): the double-single factors and the
-multi-device mesh.
+On a mesh (``parallel``) every rank runs this loop alike: the cone system
+is row-sharded (``RowShardedConeSystem`` when every group is a single
+block, else ``ShardedConeSystem``), M is a ``RowShard`` factored by the
+distributed blocked Cholesky ("shchol") or solved by the row-sharded
+Jacobi-PCG ("shcg", from ``kkt_cg_threshold`` rows on), and ``y`` is
+checked to agree bit for bit on every rank once an iteration.
+
+Not ported (raise NotImplementedError): the double-single factors.
 """
 
 from __future__ import annotations
@@ -77,13 +83,17 @@ class Maker:
     dy: Optional[torch.Tensor] = None
 
 
-def choose_fused_mode(m: int, n_max: int, n_sum: int, kkt_free: bool, params: Params):
+def choose_fused_mode(m: int, n_max: int, n_sum: int, kkt_free: bool, params: Params,
+                      mesh: bool = False):
     """The IPM mode the JAX package's DualIPM.solve picks
-    (hdsdp_tpu/solver/algo.py:1779-1812, without its mesh branch):
-    "phase" for small problems, "iter" while the estimated resident state
-    128 (m^2 + n_max n_sum) bytes fits ``fused_hbm_budget``, else False,
-    the host loop; ``fused=True`` means "phase"; operator mode
-    (``kkt_free``) always runs the host loop."""
+    (hdsdp_tpu/solver/algo.py:1779-1812): "phase" for small problems,
+    "iter" while the estimated resident state 128 (m^2 + n_max n_sum)
+    bytes fits ``fused_hbm_budget``, else False, the host loop;
+    ``fused=True`` means "phase"; operator mode (``kkt_free``) always
+    runs the host loop, and so does a mesh (the fused bodies are the
+    single-device kernels; the mesh wants the sharded assembly)."""
+    if mesh:
+        return False
     fused = params.fused
     if fused == "auto":
         est_bytes = 8.0 * 16.0 * (float(m) ** 2 + float(n_max) * float(n_sum))
@@ -110,9 +120,11 @@ def _check_supported(params: Params, m: int) -> None:
 
 
 class DualIPM:
-    """Driver owning the IPM state (ref struct hdsdp, def_hdsdp.h:60-143)."""
+    """Driver owning the IPM state (ref struct hdsdp, def_hdsdp.h:60-143).
+    With a ``mesh`` (parallel.mesh.Mesh) every rank of it runs this driver
+    alike on the mesh's device."""
 
-    def __init__(self, prob: SDPProblem, params: Params, device):
+    def __init__(self, prob: SDPProblem, params: Params, device, mesh=None):
         self.prob = prob
         self.params = params
         self.f = prob.features
@@ -122,11 +134,25 @@ class DualIPM:
         self.m = prob.m
         self.dtype = DTYPE
         self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None and self.device != mesh.device:
+            raise ValueError(f"device {self.device} is not the mesh's device {mesh.device}")
 
         # scaling (ref hdsdp.c:314-320): C *= objScal, b *= rhsScal
         self.obj_scal = self.f.obj_scaling
         self.rhs_scal = self.f.rhs_scaling
-        self.cones = ConeSystem(prob, self.device, obj_scal=self.obj_scal)
+        if mesh is None:
+            self.cones = ConeSystem(prob, self.device, obj_scal=self.obj_scal)
+        elif all(g.nblk == 1 for g in prob.groups):
+            from hdsdp_tpu_torch.parallel.schur import RowShardedConeSystem
+
+            # constraint-row-sharded assembly: M born sharded, stays
+            # sharded through the distributed Cholesky / CG
+            self.cones = RowShardedConeSystem(prob, mesh, obj_scal=self.obj_scal)
+        else:
+            from hdsdp_tpu_torch.parallel.schur import ShardedConeSystem
+
+            self.cones = ShardedConeSystem(prob, mesh, obj_scal=self.obj_scal)
         self.cones.ratio_mode = params.ratio_test
         self.cones.lanczos_dim = params.lanczos_dim
         self.cones.kkt_hp = params.kkt_hp == "on"
@@ -187,7 +213,9 @@ class DualIPM:
 
         # KKT exports (device)
         self.kkt = None
-        self.Mfac = None  # ("chol", L), ("lu", (LU, pivots)), ("cg", M) or ("opcg", None)
+        # ("chol", L), ("lu", (LU, pivots)), ("cg", M), ("opcg", None),
+        # and on a mesh ("shchol", ShardedCholFactor) or ("shcg", RowShard)
+        self.Mfac = None
         self._cg: Optional[AdaptiveCG] = None  # made at the first CG system
         self.psdp = None  # the PSDPRefiner that ended the solve, if one did
         self._lz_fused = None  # the fused bodies' Lanczos warm vectors, across phases
@@ -217,7 +245,10 @@ class DualIPM:
         mode = self.params.kkt_mode
         if mode == "free":
             return True
-        if mode != "auto":
+        if mode != "auto" or self.mesh is not None:
+            # "auto" never engages on a mesh (the mesh path row-shards a
+            # materialized M); kkt_mode="free" composes with it through
+            # the sharded operator matvec (parallel.schur)
             return False
         return self.m >= self.params.kkt_free_threshold
 
@@ -305,7 +336,8 @@ class DualIPM:
             ui = 1.0 / self.su
             asinv = asinv + ui - li
             if kind != "corr":
-                M = M + torch.diag(li * li + ui * ui)
+                d = li * li + ui * ui
+                M = M.plus_diag(d) if self._row_sharded() else M + torch.diag(d)
         self.kkt = kkt._replace(M=M, asinv=asinv)
         return self.kkt
 
@@ -348,12 +380,16 @@ class DualIPM:
             return
         if self.kkt.M is None:
             return
-        min_diag = float(torch.min(torch.diagonal(self.kkt.M)))
+        sharded = self._row_sharded()
+        min_diag = (self.kkt.M.min_diag() if sharded
+                    else float(torch.min(torch.diagonal(self.kkt.M))))
         reg = min(reg_coef * min_diag, 1e-05)
         if reg < 1e-14:
             reg = 0.0
         if reg:
-            M = self.kkt.M + reg * self._eye(self.m)
+            # on a mesh the identity tail takes the shift too, as in the
+            # JAX package
+            M = self.kkt.M.plus_diag(reg) if sharded else self.kkt.M + reg * self._eye(self.m)
             self.kkt = self.kkt._replace(M=M)
 
     def _f64_factor_ladder(self, M):
@@ -374,6 +410,25 @@ class DualIPM:
 
     def _direct_factor(self, M) -> None:
         self.Mfac = self._f64_factor_ladder(M)
+
+    def _row_sharded(self) -> bool:
+        return getattr(self.cones, "is_row_sharded", False)
+
+    def _sharded_factor(self, M):
+        """("shchol", factor) of a RowShard: the distributed blocked
+        Cholesky with the 6-rung regularization ladder (no LU rung: the
+        JAX package has none on a mesh)."""
+        from hdsdp_tpu_torch.parallel.dchol import sharded_cholesky
+
+        self._count("shchol_factors")
+        fac = sharded_cholesky(self.mesh, M)
+        if not fac.ok:
+            base = M.max_diag() * 1e-14 + 1e-300
+            for k in range(6):
+                fac = sharded_cholesky(self.mesh, M.plus_diag(base * (10.0 ** (2 * k))))
+                if fac.ok:
+                    break
+        return ("shchol", fac)
 
     def factor_kkt(self, force_direct: bool = False) -> None:
         """Factor (or defer) the Schur system.  With kkt_solver="cg", or
@@ -397,6 +452,15 @@ class DualIPM:
             p.kkt_solver == "cg"
             or (p.kkt_solver == "auto" and self.m >= p.kkt_cg_threshold)
         )
+        if self._row_sharded():
+            # M never materializes on one rank: the distributed Cholesky,
+            # or the row-sharded CG where the policy picks CG
+            if use_cg:
+                self._count("shcg_factors")
+                self.Mfac = ("shcg", M)
+            else:
+                self.Mfac = self._sharded_factor(M)
+            return
         if use_cg:
             if self._cg is None:
                 self._cg = AdaptiveCG(abs_tol=1e-10, rel_tol=1e-10)
@@ -545,6 +609,7 @@ class DualIPM:
         use_pc = (
             p.op_precond_cap > 0
             and self.m <= p.op_precond_cap
+            and self.mesh is None
             and not self._op_pc_unavailable
             and self.cones.kkt_rows_supported()
         )
@@ -617,7 +682,9 @@ class DualIPM:
             try:
                 kkt = self.cones.build_kkt(self.L, self._op_slp, self.Rd, "inf")
                 d = self._op_bound + self._op_reg
-                self.kkt = kkt._replace(M=kkt.M + torch.diag(d))
+                # on a mesh: the padded row-sharded M -> distributed Cholesky
+                self.kkt = kkt._replace(M=kkt.M.plus_diag(d) if self._row_sharded()
+                                        else kkt.M + torch.diag(d))
                 self.kkt_free = False
                 self.factor_kkt(force_direct=True)
                 self._op_escalated = self.Mfac
@@ -663,11 +730,28 @@ class DualIPM:
         LU, piv = fac
         return torch.linalg.lu_solve(LU, piv, B)
 
+    def _sharded_solve(self, rhs: torch.Tensor) -> torch.Tensor:
+        """Solve against a mesh factor: rhs [m] or [m, k], padded to the
+        KKT's padded size and cut back."""
+        kind, fac = self.Mfac
+        if kind == "shchol":
+            from hdsdp_tpu_torch.parallel.dchol import sharded_chol_solve
+
+            return sharded_chol_solve(fac, rhs)[:self.m]
+        from hdsdp_tpu_torch.parallel.cg import sharded_pcg
+
+        # the JAX package drops the step count; it is kept in the stats
+        x, it = sharded_pcg(self.mesh, fac, rhs, abs_tol=1e-10, rel_tol=1e-10)
+        self._count("shcg_iters", it)
+        return x[:self.m]
+
     def solve_kkt(self, rhs: torch.Tensor) -> torch.Tensor:
         self._factor_stats["n_solve"] += 1
         kind, fac = self.Mfac
         if kind == "opcg":
             return self._op_solve(rhs[:, None])[:, 0]
+        if kind in ("shchol", "shcg"):
+            return self._sharded_solve(rhs)
         if kind == "cg":
             x, ok = self._cg.solve_checked(fac, rhs)
             if ok:
@@ -685,6 +769,13 @@ class DualIPM:
             self._factor_stats["n_solve"] += len(rhs_list)
             X = self._op_solve(torch.stack(rhs_list, dim=1))
             return [X[:, i] for i in range(len(rhs_list))]
+        if kind == "shchol":
+            self._factor_stats["n_solve"] += len(rhs_list)
+            sols = self._sharded_solve(torch.stack(rhs_list, dim=1))
+            return [sols[:, i] for i in range(len(rhs_list))]
+        if kind == "shcg":
+            # one system at a time, as the JAX package solves them
+            return [self.solve_kkt(r) for r in rhs_list]
         if kind == "cg":
             self._factor_stats["n_solve"] += len(rhs_list)
             X, ok = self._cg.solve_mat_checked(fac, torch.stack(rhs_list, dim=1))
@@ -1034,6 +1125,9 @@ class DualIPM:
     # logging (ref HDSDP_PrintLog, :152-194)
     # ------------------------------------------------------------------
     def print_log(self, method: str):
+        if self.mesh is not None:
+            # once an iteration: every rank must hold the same iterate
+            self.mesh.assert_same(self.y, "y")
         pd_scal = 1.0 / (self.rhs_scal * self.obj_scal * self.tau)
         n_sum = max(self.f.n_sum_cone_dims, 1)
         self.d_infeas = np.sqrt(n_sum) * abs(self.Rd) / (self.rhs_scal * self.tau)
@@ -1490,7 +1584,7 @@ class DualIPM:
     # ------------------------------------------------------------------
     def solve(self, d_only: bool = False):
         fused = choose_fused_mode(self.m, self.f.n_max_cone_dim, self.f.n_sum_cone_dims,
-                                  self.kkt_free, self.params)
+                                  self.kkt_free, self.params, mesh=self.mesh is not None)
         self._factor_stats["fused"] = fused
         try:
             if fused:

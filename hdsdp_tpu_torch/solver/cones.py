@@ -145,23 +145,31 @@ def inverses(L, hp: bool = False):
 
 
 def _kkt_terms(groups, lp, Us, s_lp, Rd, m: int, kind: str, with_m: bool,
-               hp: bool) -> KKTOut:
+               hp: bool, col_groups=None, col_lp=None, rows: Optional[int] = None) -> KKTOut:
     """The KKT sums over (group, U) pairs and the LP cone.  ``Us`` may be
-    a generator, so that a dense build holds one inverse at a time."""
+    a generator, so that a dense build holds one inverse at a time.
+
+    ``col_groups``/``col_lp``: the whole cones when ``groups``/``lp`` are
+    row views of them (a block of ``rows`` constraint rows, see
+    ops.schur.group_schur's ``col``): M is then those rows [rows, m] and
+    the vectors their entries; the scalars are the whole cones' own."""
     dt, dev = (s_lp.dtype, s_lp.device) if not groups else (groups[0].C.dtype, groups[0].C.device)
     # a fleet's sums carry its leading axis
     lead = s_lp.shape[:-1] if not groups else groups[0].C.shape[:-3]
-    M = torch.zeros(lead + (m, m), dtype=dt, device=dev) if with_m else None
-    asinv = torch.zeros(lead + (m,), dtype=dt, device=dev)
-    trsas = torch.zeros(lead + (m,), dtype=dt, device=dev)
+    r = m if rows is None else rows
+    M = torch.zeros(lead + (r, m), dtype=dt, device=dev) if with_m else None
+    asinv = torch.zeros(lead + (r,), dtype=dt, device=dev)
+    trsas = torch.zeros(lead + (r,), dtype=dt, device=dev)
     tr_u = torch.zeros(lead, dtype=dt, device=dev)
-    asinvcsinv = torch.zeros(lead + (m,), dtype=dt, device=dev) if kind == "hsd" else None
+    asinvcsinv = torch.zeros(lead + (r,), dtype=dt, device=dev) if kind == "hsd" else None
     csinv = torch.zeros(lead, dtype=dt, device=dev)
     csinvcsinv = torch.zeros(lead, dtype=dt, device=dev)
     csinvrdsinv = torch.zeros(lead, dtype=dt, device=dev)
+    if col_groups is None:
+        col_groups = (None,) * len(groups)
 
-    for ga, U in zip(groups, Us):
-        out = schur_ops.group_schur(ga, U, m, with_m=with_m, hp=hp)
+    for ga, U, cg in zip(groups, Us, col_groups):
+        out = schur_ops.group_schur(ga, U, m, with_m=with_m, hp=hp, col=cg)
         if with_m:
             M = M + out.M
         asinv = asinv + out.asinv
@@ -175,7 +183,7 @@ def _kkt_terms(groups, lp, Us, s_lp, Rd, m: int, kind: str, with_m: bool,
             csinvrdsinv = csinvrdsinv + Rd * h.trUCU
 
     if lp is not None:
-        out = schur_ops.lp_schur(lp, s_lp, m, with_m=with_m)
+        out = schur_ops.lp_schur(lp, s_lp, m, with_m=with_m, col=col_lp)
         if with_m:
             M = M + out.M
         asinv = asinv + out.asinv
@@ -201,10 +209,16 @@ def _kkt_terms(groups, lp, Us, s_lp, Rd, m: int, kind: str, with_m: bool,
     )
 
 
-def build_kkt(groups, lp, L, s_lp, Rd, m: int, kind: str, hp: bool = False) -> KKTOut:
-    """kind in {"inf", "hsd", "corr"} ~ KKT_TYPE_* (ref hdsdp_conic.h:16-19)."""
+def build_kkt(groups, lp, L, s_lp, Rd, m: int, kind: str, hp: bool = False,
+              col_groups=None, col_lp=None, rows: Optional[int] = None) -> KKTOut:
+    """kind in {"inf", "hsd", "corr"} ~ KKT_TYPE_* (ref hdsdp_conic.h:16-19).
+
+    ``col_groups``/``col_lp``/``rows``: the whole cones when ``groups`` and
+    ``lp`` are row views of ``rows`` constraints (the row-sharded mesh
+    assembly, parallel.schur.RowShardedConeSystem); see _kkt_terms."""
     Us = (chol_ops.chol_inverse(Lg, use_dd=hp) for Lg in L)
-    return _kkt_terms(groups, lp, Us, s_lp, Rd, m, kind, kind != "corr", hp)
+    return _kkt_terms(groups, lp, Us, s_lp, Rd, m, kind, kind != "corr", hp,
+                      col_groups=col_groups, col_lp=col_lp, rows=rows)
 
 
 def build_kkt_rhs(groups, lp, Us, s_lp, Rd, m: int, kind: str) -> KKTOut:

@@ -13,9 +13,9 @@ package), so the triple (mu*, U, dy) is self-consistent:
 
     (M(U) + D_bound) dy = b/mu* - (ASinv(U) + u^-1 - l^-1).
 
-In operator mode (``ipm.kkt_free``, M never materialized), and above
-``op_materialize_cap`` rows in any mode, the re-solve runs CG on the
-matrix-free operator at the maker point: against a fresh row-chunked f32
+In operator mode (``ipm.kkt_free``, M never materialized), on a mesh,
+and above ``op_materialize_cap`` rows in any mode, the re-solve runs CG
+on the matrix-free operator at the maker point (sharded over the mesh): against a fresh row-chunked f32
 Cholesky preconditioner where the layout allows one, else restarted
 Jacobi-PCG runs.
 """
@@ -221,7 +221,10 @@ def _solve_maker_dy(ipm, Us, sbar_lp, M, d_bound, rhs):
     on the matrix-free operator, with a fresh chunk-materialized f32
     Cholesky preconditioner at the MAKER point when the layout supports it
     (the Jacobi-only re-solve stalls at endgame conditioning and leaves
-    err1/err5 at ~1e-6; the chol-PCG reaches the direct path's grade)."""
+    err1/err5 at ~1e-6; the chol-PCG reaches the direct path's grade).
+    The operator here is the cone system's whole one, on every rank of a
+    mesh alike (the JAX package's check calls its module-level
+    ``_kkt_pcg``, not the sharded matvec): no collective per CG step."""
     if M is not None:
         ok, dy = _chol_solve_ladder(M, rhs)
         return dy if ok else None
@@ -233,10 +236,11 @@ def _solve_maker_dy(ipm, Us, sbar_lp, M, d_bound, rhs):
     budget = max(p.kkt_free_maxiter, 600)
 
     def matvec(X):
-        return cones.kkt_matvec(Us, sbar_lp, d_bound, X)
+        return cone_ops.kkt_matvec(cones.groups, cones.lp, Us, sbar_lp, d_bound, X, ipm.m)
 
     pc = None
-    if p.op_precond_cap > 0 and ipm.m <= p.op_precond_cap and cones.kkt_rows_supported():
+    if (p.op_precond_cap > 0 and ipm.m <= p.op_precond_cap and ipm.mesh is None
+            and cones.kkt_rows_supported()):
         try:
             pc = ipm._build_chunked_precond(Us, sbar_lp, d_bound, diag)
         except torch.cuda.OutOfMemoryError as e:
@@ -250,17 +254,19 @@ def _solve_maker_dy(ipm, Us, sbar_lp, M, d_bound, rhs):
             matvec, rhs)
     pinv = 1.0 / torch.clamp(diag, min=1e-300)
     return _restarted_pcg(
-        lambda R: cones.kkt_pcg(Us, sbar_lp, d_bound, pinv, R,
-                                1e-10, 1e-10, budget)[0],
+        lambda R: cone_ops.kkt_pcg(cones.groups, cones.lp, Us, sbar_lp, d_bound, pinv, R,
+                                   ipm.m, 1e-10, 1e-10, budget)[0],
         matvec, rhs)
 
 
 def _consistent_maker_solve(ipm, maker):
     """(Us, sbar_lp, dy) for the maker, or None if Sbar is not PD."""
     # Never materialize and factor the full m x m M at check time in
-    # operator mode or above the operator's materialization cap: the
+    # operator mode, on a row-sharded mesh (whose design keeps M
+    # distributed) or above the operator's materialization cap: the
     # consistency dy then comes from CG on the matrix-free operator.
-    with_m = not ipm.kkt_free and ipm.m <= ipm.params.op_materialize_cap
+    with_m = (not ipm.kkt_free and ipm.m <= ipm.params.op_materialize_cap
+              and not getattr(ipm.cones, "is_row_sharded", False))
     ok, Us, sbar_lp, M, d_bound, rhs = _maker_kkt(
         ipm.cones, ipm.b, maker.mu, maker.y, ipm.perturb,
         ipm.bound_lo, ipm.bound_up, ipm.m, bool(ipm.cones.kkt_hp), with_m,

@@ -183,6 +183,28 @@ class PSDPRefiner:
                     )
                 return
 
+            if ipm._row_sharded():
+                # on a mesh each rank builds its rows of the X-weighted M
+                # and factor_kkt takes the sharded branch (the distributed
+                # Cholesky, or the row-sharded CG from kkt_cg_threshold
+                # rows on: JAX psdp.py:203 forces the direct factor only
+                # off the mesh)
+                M = ipm.cones.primal_kkt(Xscal)
+                reg = 1e-16 * M.max_diag(true_rows=True) + 1e-300
+                ipm.kkt = KKTOut(
+                    M=M.plus_diag(reg, true_rows=True),
+                    asinv=None, asinvrdsinv=None, asinvcsinv=None,
+                    csinv=None, csinvcsinv=None, csinvrdsinv=None,
+                    trace_sinv=None,
+                )
+                saved_free = ipm.kkt_free
+                ipm.kkt_free = False
+                try:
+                    ipm.factor_kkt(force_direct=False)
+                finally:
+                    ipm.kkt_free = saved_free
+                return
+
             # from 8192 rows on the X-weighted M comes from row chunks,
             # whose temporaries are [chunk, m] and not [m, m]
             if ipm.cones.kkt_rows_supported() and m >= 8192:

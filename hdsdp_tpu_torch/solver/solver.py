@@ -8,6 +8,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
+import torch
 
 from hdsdp_tpu_torch.io.sdpa import read_sdpa
 from hdsdp_tpu_torch.models.problem import SDPProblem
@@ -49,11 +50,22 @@ def _host(x) -> np.ndarray:
 class HDSDPSolver:
     """Drives presolve -> 3-phase IPM -> DIMACS check (ref HDSDPOptimize,
     interface/hdsdp.c:647-719) on one device (default "cuda", which
-    raises when no card is usable)."""
+    raises when no card is usable), or, with ``mesh`` (a
+    ``parallel.mesh.Mesh``, from ``make_mesh``), on every rank of the mesh
+    at once: each rank constructs the solver and calls ``optimize`` alike,
+    the device is the mesh's, and a ``device`` that disagrees raises."""
 
-    def __init__(self, prob: SDPProblem, device="cuda", **param_overrides):
+    def __init__(self, prob: SDPProblem, device=None, mesh=None, **param_overrides):
         self.prob = prob
-        self.device = resolve_device(device)
+        if mesh is not None:
+            want = None if device is None else torch.device(device)
+            if want is not None and (want.type != mesh.device.type or want.index not in (
+                    None, mesh.device.index)):
+                raise ValueError(f"device {device!r} disagrees with the mesh's device "
+                                 f"{mesh.device}")
+            device = mesh.device
+        self.device = resolve_device("cuda" if device is None else device)
+        self.mesh = mesh
         self.params = Params(**param_overrides)
         self.ipm: Optional[algo.DualIPM] = None
         self._dual_start = None
@@ -72,7 +84,7 @@ class HDSDPSolver:
         dual start and both makers) written by either package,
         ``checkpoint_to`` writes one after the IPM ends."""
         t0 = time.time()
-        ipm = algo.DualIPM(self.prob, self.params, device=self.device)
+        ipm = algo.DualIPM(self.prob, self.params, device=self.device, mesh=self.mesh)
         if self._dual_start is not None:
             ipm.y0 = ipm._vec(self._dual_start)
         if resume_from is not None:
@@ -156,8 +168,10 @@ class HDSDPSolver:
         return S_by_block, (_host(s_lp) if s_lp is not None else None)
 
 
-def solve_sdpa_file(path: str, device="cuda", d_only: bool = False,
+def solve_sdpa_file(path: str, device=None, d_only: bool = False, mesh=None,
                     **param_overrides) -> Result:
-    solver = HDSDPSolver(SDPProblem.from_sdpa(read_sdpa(path)), device=device,
+    """Read, presolve and solve an SDPA file on ``device`` (default
+    "cuda") or on every rank of ``mesh``."""
+    solver = HDSDPSolver(SDPProblem.from_sdpa(read_sdpa(path)), device=device, mesh=mesh,
                          **param_overrides)
     return solver.optimize(d_only=d_only)

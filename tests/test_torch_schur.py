@@ -340,3 +340,51 @@ def test_table_sum_is_a_segment_sum():
         want[:, idx[t]] += vals[:, t]
     np.testing.assert_allclose(out, want, rtol=1e-14, atol=1e-14)
     assert tschur.gather_table(np.zeros(0, np.int64), 4).shape == (4, 1)
+
+
+# ----------------------------------------------------------------------
+# column views: a block of constraint rows against the whole group (the
+# row-sharded mesh assembly, hdsdp_tpu_torch.parallel.schur)
+# ----------------------------------------------------------------------
+
+ROW_BLOCKS = (0.0, 0.3, 0.5, 1.0)  # fractions of m: three blocks of rows
+
+
+@pytest.mark.parametrize("hp", [False, True])
+@pytest.mark.parametrize("with_m", [True, False])
+def test_row_view_rows(case, hp, with_m):
+    """Each block's rows of M and its entries of ASinv, trSAS and the HSD
+    vector, from ``group_schur(row_view, col=group)``, against the whole
+    group's: bit for bit for the gather buckets (diag, support: the (k, j)
+    partner is built as the transpose of the (j, k) pair) and for a
+    rank-1 slot group without dense part (gpp); ~2^-45 relative for the
+    slot bucket with dense coefficients, under hp too.  Flat groups take
+    no column view."""
+    from hdsdp_tpu_torch.parallel.schur import row_view
+
+    tg, m = case["tg"][0], case["m"]
+    U = torch.as_tensor(case["U"])
+    if tschur.bucket(tg) == "flat":
+        with pytest.raises(ValueError):
+            tschur.group_schur(tg, U, m, with_m=with_m, col=tg)
+        return
+    full = tschur.group_schur(tg, U, m, with_m=with_m, hp=hp)
+    hfull = tschur.group_hsd(tg, U, m)
+    bitwise = case["name"] != "random"
+    cuts = [int(round(f * m)) for f in ROW_BLOCKS]
+    for r0, r1 in zip(cuts[:-1], cuts[1:]):
+        v = row_view(tg, r0, r1)
+        out = tschur.group_schur(v, U, m, with_m=with_m, hp=hp, col=tg)
+        pairs = [(out.asinv, full.asinv[r0:r1]), (out.trSAS, full.trSAS[r0:r1]),
+                 (tschur.group_hsd(v, U, m).asinvcsinv, hfull.asinvcsinv[r0:r1])]
+        if with_m:
+            assert out.M.shape == (r1 - r0, m)
+            pairs.append((out.M, full.M[r0:r1]))
+        else:
+            assert out.M is None
+        assert torch.equal(out.trU, full.trU)
+        for got, want in pairs:
+            if bitwise:
+                assert torch.equal(got, want), (r0, r1)
+            else:
+                assert _rel(got, want.numpy()) <= 2.0 ** -45, (r0, r1)
