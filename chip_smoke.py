@@ -19,7 +19,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              hpmm and the f64 torch.matmul of the same product with CUDA
              events (the kernels inside a replayed CUDA graph, so that the
              host's launch cost is not what is measured), and compute each
-             kernel's bound from the shapes;
+             kernel's bound from the shapes.  K8, the double-single panel
+             factor of ops/ddchol.py (csrc/dd_panel.cu), is held bit for bit
+             (signed zeros included) against its plain version at B = 256 on
+             a well-conditioned, an ill-conditioned (cond 1e12), an
+             indefinite (both fail ok alike) and a wild-scaled panel, and a
+             fleet of the four against its four single launches; the whole
+             ddchol.factor of maxG51's start S (1000 padded to 1024, 4
+             panels) on the card against the host, bit for bit; K8, its
+             plain version and f64 cholesky of the panel timed, and the whole
+             factor against f64 cholesky of S;
   4. slice   solve the SDPLIB gpp500-class instance (gpp_sdpa(n=500,
              seed=0), m = 501, one 500 x 500 block) with kkt_hp="on" and
              fused=False (the host loop) through solve_sdpa_file, count the
@@ -115,6 +124,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              shapes of gpp500, [126, 500] x [500, 500] and [126, 500] x [500,
              501], bitwise against their plain versions, and times them.)
 
+ 12. dd      the double-single path (ops/ddchol.py, run after the batch
+             phase): maxG51 (maxcut_sdpa(n=1000, seed=0)) through
+             solve_sdpa_file (a) with cone_fp="dd" (the fused "iter" path,
+             every cone factor and interior check through ddchol: K8, K1,
+             K1s), (b) fused=False, kkt_fp="dd", cone_fp="dd" (the Schur
+             factor by ddchol with f64 refinement), (c) kkt_hp="on" (U = S^-1
+             through ddchol.spd_inverse_from_f64_tri: K1, K1s, no K8, the
+             factor being the cone system's f64 one), each held to the JAX
+             package's CPU run (DD_SOLVES: status, d_obj 1e-7, DIMACS <=
+             1e-6) and to its launches, counted from 0 around it; (d) a fleet
+             of 4 x maxcut_sdpa(n=1000, seed=s) with cone_fp="dd" through
+             solve_batch (K8 and K1/K1s take the 4 instances in one launch),
+             every member finished in the fleet and held to its solo solve.
+             Then the tiers the JAX package gates on a TPU, forced on at their
+             thresholds: AdaptiveCG's DD tier at m = 4096, refine_solve
+             pre-inverted and with the Ozaki residual at m = 8192,
+             dimacs._dd_solve_checked at m = 4096 (and its fallback on an
+             indefinite M), dimacs._uwu through hpmm at n = 8192.
+
 The last lines are the kernel table as JSON, the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}.
 """
@@ -122,6 +150,7 @@ limit, and the contract line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -763,6 +792,419 @@ def _fleet_kernel_phase(hpmm, dev):
     return worst, worst_slice, times
 
 
+def _bits_same(x, y) -> bool:
+    """Bit-for-bit equality of two float tensors, signed zeros told apart
+    and NaN equal to NaN (a NaN's payload is not part of the contract)."""
+    import torch
+
+    if x.shape != y.shape or x.dtype != y.dtype:
+        return False
+    nx, ny = x.isnan(), y.isnan()
+    iv = torch.int32 if x.dtype == torch.float32 else torch.int64
+    return (torch.equal(nx, ny)
+            and torch.equal(x.masked_fill(nx, 0).view(iv), y.masked_fill(ny, 0).view(iv)))
+
+
+def _panel_bound_ms(b, n_inst=1):
+    """(bound ms, which peak) of K8 on n_inst panels of B x B: the two
+    input words read once and the four output words written once, against
+    the f32 operations of the sweep, counted from its code: per step 35 B^2
+    for the rank-1 update (a DD product and a DD sum), 35 B^2 for W's row
+    (a DD product per entry, one tree node per entry), 48 B + 76 for the
+    column, the pivot's sqrt and inverse and the row's last two steps."""
+    t_bytes = n_inst * 6 * 4 * b * b / PEAK_BYTES_S
+    t_ops = n_inst * b * (70.0 * b * b + 48.0 * b + 76.0) / PEAK_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _maxg51_start_s(torch, dev):
+    """maxG51's dual slack S at the IPM's first interior point, [1000, 1000]."""
+    from hdsdp_tpu_torch.models import synthetic
+    from hdsdp_tpu_torch.models.problem import SDPProblem
+    from hdsdp_tpu_torch.solver import algo
+    from hdsdp_tpu_torch.solver.params import Params
+
+    ipm = algo.DualIPM(SDPProblem.from_sdpa(synthetic.maxcut_sdpa(n=1000, seed=0)),
+                       Params(verbose=False), device=dev)
+    ipm.set_start("infeas", False)
+    if not ipm.check_is_interior(ipm.tau, ipm.y):
+        ipm.reset_start()
+        _require(ipm.check_is_interior(ipm.tau, ipm.y), "maxG51's start is not interior")
+    return ipm.S[0][0]
+
+
+def _dd_kernel_phase(torch, ddchol, dev):
+    """K8 (the DD panel factor) against its plain version on the card, bit
+    for bit, at B = 256 on a well-conditioned SPD panel, an ill-conditioned
+    one (cond 1e12), an indefinite one (both must fail ok alike) and one of
+    wild scales (entries 1e-28..1e28, inside the f32 range ops/dd.py
+    states), and a fleet of those four against its four single launches;
+    then the whole ddchol.factor of maxG51's 1024-padded S, card against
+    host.  Times K8, its plain version and f64 cholesky of the same panel
+    (CUDA events), and the whole factor against f64 cholesky.  Returns
+    (worst max |diff|, times)."""
+    import numpy as np
+
+    from hdsdp_tpu_torch.ops import dd
+
+    rng = np.random.default_rng(8)
+    b = 256
+
+    def spd(cond):
+        q, _ = np.linalg.qr(rng.standard_normal((b, b)))
+        a = (q * np.logspace(0, -np.log10(cond), b)) @ q.T
+        return 0.5 * (a + a.T)
+
+    d = np.logspace(-14, 14, b)
+    mats = {
+        "well-conditioned SPD": spd(1e2) + np.eye(b),
+        "ill-conditioned SPD (cond 1e12)": spd(1e12),
+        "indefinite": spd(1e2) - 0.5 * np.eye(b),
+        "wild scales (1e-28..1e28)": d[:, None] * (spd(1e2) + np.eye(b)) * d[None, :],
+    }
+    worst = 0.0
+
+    def check(name, a64):
+        nonlocal worst
+        ph, pl = dd.from_f64(torch.as_tensor(a64, device=dev))
+        n0 = ddchol.PANEL_LAUNCHES
+        got = ddchol.panel_factor(ph, pl)
+        _require(ddchol.PANEL_LAUNCHES == n0 + 1, f"K8 did not count one launch at {name}")
+        want = ddchol.panel_factor_ref(ph, pl)
+        torch.cuda.synchronize()
+        for g, w, what in zip(got, want, ("Lh", "Ll", "Wh", "Wl")):
+            if not _bits_same(g, w):
+                bad = (g != w) & ~(g.isnan() & w.isnan())
+                raise AssertionError(
+                    f"K8 differs from panel_factor_ref at {name}, {what}: "
+                    f"{int(bad.sum())} entries, max |diff| {_max_abs_diff(g, w)}")
+            worst = max(worst, _max_abs_diff(g, w))
+        ok_k = ddchol.ok(ddchol.DDFactor(got[0], got[1], got[2][..., None, :, :],
+                                         got[3][..., None, :, :]))
+        ok_p = ddchol.ok(ddchol.DDFactor(want[0], want[1], want[2][..., None, :, :],
+                                         want[3][..., None, :, :]))
+        _require(torch.equal(ok_k, ok_p), f"K8 and its plain version disagree on ok at {name}")
+        return got, ok_k
+
+    for name, a in mats.items():
+        _, ok_k = check(name, a)
+        _require(bool(ok_k) == (name != "indefinite"),
+                 f"ok is {bool(ok_k)} on the {name} panel")
+        print(f"[kernel] K8 dd_panel [{b},{b}] {name}: == panel_factor_ref bit for bit "
+              f"(L, W, signed zeros, NaN where NaN); ok {bool(ok_k)} in both", flush=True)
+    stack = np.stack(list(mats.values()))
+    fleet_out, ok_f = check("a fleet of 4", stack)
+    for i, a in enumerate(mats.values()):
+        single = ddchol.panel_factor(*dd.from_f64(torch.as_tensor(a, device=dev)))
+        _require(all(_bits_same(f[i], s) for f, s in zip(fleet_out, single)),
+                 f"K8's fleet differs from its single launch at instance {i}")
+    _require(ok_f.tolist() == [True, True, False, True], f"fleet ok {ok_f.tolist()}")
+    print(f"[kernel] K8 fleet of 4 [4,{b},{b}]: one launch, == the 4 single launches and "
+          f"the plain fleet bit for bit; ok {ok_f.tolist()}", flush=True)
+
+    # -- the whole DD factor of maxG51's S: card == host, bit for bit ---------
+    S = _maxg51_start_s(torch, dev)
+    f_card = ddchol.factor(S)
+    f_host = ddchol.factor(S.cpu())
+    _require(all(_bits_same(x.cpu(), y) for x, y in zip(f_card, f_host)),
+             "ddchol.factor of maxG51's S differs between the card and the host")
+    L = dd.to_f64(f_card.lh, f_card.ll)[:1000, :1000]
+    rel = float((L @ L.T - S).abs().max() / S.abs().max())
+    _require(bool(ddchol.ok(f_card)) and rel < 1e-12, f"maxG51's DD factor: rel {rel}")
+    print(f"[kernel] ddchol.factor of maxG51's S (1000 -> 1024, 4 panels): card == host "
+          f"plain versions bit for bit; |L L^T - S| / |S| = {rel:.3e}", flush=True)
+
+    a = mats["well-conditioned SPD"]
+    ph, pl = dd.from_f64(torch.as_tensor(a, device=dev))
+    a64 = torch.as_tensor(a, device=dev)
+    fh, fl = dd.from_f64(torch.as_tensor(stack, device=dev))
+    singles = [dd.from_f64(torch.as_tensor(x, device=dev)) for x in stack]
+    t = {
+        "k8": _device_ms(lambda: ddchol.panel_factor(ph, pl), reps=10),
+        "k8_plain": _time_ms(lambda: ddchol.panel_factor_ref(ph, pl), reps=2, warmup=1),
+        "cholesky_f64": _device_ms(lambda: torch.linalg.cholesky_ex(a64), reps=10),
+        "k8_bound": _panel_bound_ms(b),
+        "k8_fleet": _device_ms(lambda: ddchol.panel_factor(fh, fl), reps=5),
+        "k8_fleet_singles": _device_ms(lambda: [ddchol.panel_factor(*x) for x in singles],
+                                       reps=5),
+        "k8_fleet_bound": _panel_bound_ms(b, 4),
+        "factor": _device_ms(lambda: ddchol.factor(S), reps=5),
+        "factor_eager": _time_ms(lambda: ddchol.factor(S), reps=5, warmup=1),
+        "factor_cholesky_f64": _device_ms(lambda: torch.linalg.cholesky_ex(S), reps=10),
+    }
+    print(f"[kernel] K8 [{b},{b}] device ms (CUDA events around a graph of 10 calls): "
+          f"{t['k8']:.4f} (bound {t['k8_bound'][0]:.5f} by {t['k8_bound'][1]}; plain, eager: "
+          f"{t['k8_plain']:.2f}; yardstick f64 torch.linalg.cholesky of the same panel "
+          f"{t['cholesky_f64']:.4f}); fleet of 4 {t['k8_fleet']:.4f} (4 single launches "
+          f"{t['k8_fleet_singles']:.4f}, bound {t['k8_fleet_bound'][0]:.5f})", flush=True)
+    print(f"[kernel] ddchol.factor of maxG51's S: {t['factor']:.3f} ms on the device, "
+          f"{t['factor_eager']:.3f} ms eager; f64 torch.linalg.cholesky of the same S "
+          f"{t['factor_cholesky_f64']:.3f} ms ({t['factor'] / t['factor_cholesky_f64']:.1f}x)",
+          flush=True)
+    return worst, t
+
+
+# The [dd] phase's solves of maxG51 (maxcut_sdpa(n=1000, seed=0)) and their
+# references: (status, iterations, d_obj, DIMACS max) of the JAX package's
+# run with the same overrides on the card's host CPU, `JAX_PLATFORMS=cpu
+# python tests/jax_reference.py maxG51 --fused auto --kw '{"cone_fp": "dd"}'`
+# (a), `--fused false --kw '{"kkt_fp": "dd", "cone_fp": "dd"}'` (b), `--fused
+# auto --kw '{"kkt_hp": "on"}'` (c); 475, 607 and 107 s, three at once on 8
+# cores.  Held: status, d_obj 1e-7 relative, DIMACS max <= 1e-6; the
+# iterations are printed.
+DD_SOLVES = {
+    "a": ({"cone_fp": "dd"}, ("PRIMAL_DUAL_OPTIMAL", 34, -261.42702231327434, 5.2351653001697896e-09)),
+    "b": ({"fused": False, "kkt_fp": "dd", "cone_fp": "dd"},
+          ("PRIMAL_DUAL_OPTIMAL", 33, -261.4270223132649, 3.951510001920758e-09)),
+    "c": ({"kkt_hp": "on"}, ("PRIMAL_DUAL_OPTIMAL", 34, -261.42702231344566, 4.456649268410192e-09)),
+}
+DD_FLEET = 4  # (d): 4 x maxcut_sdpa(n=1000, seed=s) with cone_fp="dd"
+DD_PATHS = {"a": "dd (a) maxG51 cone_fp=dd, fused", "b": "dd (b) maxG51 kkt_fp=cone_fp=dd, host loop",
+            "c": "dd (c) maxG51 kkt_hp=on, fused", "d": "dd (d) 4 x maxG51 cone_fp=dd, fleet"}
+
+
+def _dd_launches(hpmm, ddchol, k0=None):
+    """(K8, K1, K1s) launches, or their growth since k0."""
+    now = (ddchol.PANEL_LAUNCHES, hpmm.KERNEL_LAUNCHES, hpmm.SLICE_LAUNCHES)
+    return now if k0 is None else tuple(a - b for a, b in zip(now, k0))
+
+
+def _dd_phase(torch, solve_sdpa_file, instances, hpmm, default_wall, tmp):
+    """The double-single path on maxG51 through the entry points: (a) the
+    default (fused "iter") path with cone_fp="dd", every cone factor and
+    interior check through ops.ddchol; (b) the host loop with kkt_fp and
+    cone_fp "dd", the Schur factor by ddchol and f64 refinement; (c)
+    kkt_hp="on", U = S^-1 through ddchol.spd_inverse_from_f64_tri; (d) a
+    fleet of 4 with cone_fp="dd", each member held to its solo solve.
+    (a)-(c) are held to DD_SOLVES; K1 and K1s must launch in all four and
+    K8 where the path factors with it: (a), (b), (d).  (c) builds its DD
+    factor from the f64 factor the cone system already has
+    (ddchol.factor_from_f64_tri, the JAX route too), so it launches no K8.
+    Returns each path's (K8, K1, K1s) launches, counted from 0 around it."""
+    from hdsdp_tpu_torch import solve_batch
+    from hdsdp_tpu_torch.models import synthetic
+    from hdsdp_tpu_torch.models.problem import SDPProblem
+    from hdsdp_tpu_torch.ops import ddchol
+    from hdsdp_tpu_torch.solver.solver import HDSDPSolver
+
+    path = os.path.join(tmp, "maxG51.dat-s")
+    instances.write_instance("maxG51", path)
+    launches = {}
+    for key, (over, (ref_status, ref_iters, ref_d_obj, ref_dimacs)) in DD_SOLVES.items():
+        torch.cuda.synchronize()
+        ddchol.PANEL_LAUNCHES = hpmm.KERNEL_LAUNCHES = hpmm.SLICE_LAUNCHES = 0
+        t0 = time.perf_counter()
+        r = solve_sdpa_file(path, device="cuda", verbose=False, **over)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[key] = _dd_launches(hpmm, ddchol)
+        rel_d = abs(r.d_obj - ref_d_obj) / abs(ref_d_obj)
+        dmax = float(abs(r.dimacs).max())
+        print(json.dumps({
+            "dd_phase": key, "instance": "maxG51", "overrides": over, "fused": r.stats.get("fused"),
+            "status": r.status, "iterations": r.n_iters, "jax_iterations": ref_iters,
+            "d_obj": r.d_obj, "jax_d_obj": ref_d_obj, "rel_d_obj_err": rel_d,
+            "dimacs_max": dmax, "jax_dimacs_max": ref_dimacs, "wall_s": wall,
+            "default_fused_wall_s": default_wall,
+            "launches_k8_k1_k1s": launches[key], "device": r.device,
+        }), flush=True)
+        k8, k1, k1s = launches[key]
+        checks = {
+            "status": r.status == ref_status,
+            "d_obj": rel_d <= 1e-7,
+            "dimacs": dmax <= 1e-6,
+            "path": r.stats.get("fused") == ("iter" if over.get("fused", "auto") else False),
+            "k8": k8 > 0 if key != "c" else k8 == 0,
+            "k1_k1s": k1 > 0 and k1s > 0,
+            "device": r.device.startswith("cuda"),
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"[dd] ({key}) checks failed: {checks}")
+
+    # -- (d): a fleet with cone_fp="dd" against its members' solo solves -------
+    probs = [SDPProblem.from_sdpa(synthetic.maxcut_sdpa(n=1000, seed=s))
+             for s in range(DD_FLEET)]
+    solos, solo_walls = [], []
+    for prob in probs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solos.append(HDSDPSolver(prob, device="cuda", verbose=False, cone_fp="dd").optimize())
+        torch.cuda.synchronize()
+        solo_walls.append(time.perf_counter() - t0)
+    ddchol.PANEL_LAUNCHES = hpmm.KERNEL_LAUNCHES = hpmm.SLICE_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs = solve_batch(probs, device="cuda", verbose=False, cone_fp="dd")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["d"] = _dd_launches(hpmm, ddchol)
+    acct = rs[0].stats["fleet"]
+    rel = [abs(a.d_obj - b.d_obj) / abs(b.d_obj) for a, b in zip(rs, solos)]
+    dmax = [float(abs(r.dimacs).max()) for r in rs]
+    print(json.dumps({
+        "dd_phase": "d", "fleet": f"{DD_FLEET} x maxcut_sdpa(n=1000, seed=0..{DD_FLEET - 1})",
+        "overrides": {"cone_fp": "dd"}, "status": [r.status for r in rs],
+        "batch_solo": [r.stats["batch_solo"] for r in rs],
+        "iterations": [r.n_iters for r in rs], "solo_iterations": [r.n_iters for r in solos],
+        "rel_d_obj_to_solo": rel, "dimacs_max": dmax, "wall_s": wall,
+        "solo_walls_s": solo_walls, "fleet_kernel_launches_k1_k1s_k8": acct["kernel_launches"],
+        "launches_k8_k1_k1s": launches["d"],
+    }), flush=True)
+    checks = {
+        "in_fleet": all(r.stats["batch_solo"] == 0 for r in rs),
+        "status": all(r.status == s.status == "PRIMAL_DUAL_OPTIMAL" for r, s in zip(rs, solos)),
+        "d_obj": all(x <= 1e-7 for x in rel),
+        "dimacs": all(x <= 1e-6 for x in dmax),
+        "solo_to_a": abs(solos[0].d_obj - DD_SOLVES["a"][1][2]) / abs(DD_SOLVES["a"][1][2]) <= 1e-7,
+        "kernels": all(x > 0 for x in acct["kernel_launches"]),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"[dd] (d) checks failed: {checks}")
+    return launches
+
+
+def _spd_card(torch, m, cond, seed, dev):
+    """An SPD [m, m] f64 matrix on the card with eigenvalues log-spaced from
+    1 to ``cond`` (the pattern of tests/test_cg.py), made on the card from a
+    seeded host generator."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, _ = torch.linalg.qr(torch.randn((m, m), generator=g, dtype=torch.float64).to(dev))
+    w = torch.logspace(0, math.log10(cond), m, dtype=torch.float64, device=dev)
+    a = (q * w) @ q.T
+    return 0.5 * (a + a.T)
+
+
+def _gated_phase(torch, hpmm, dev):
+    """The tiers the JAX package gates on a TPU, forced on at their own
+    thresholds and held as tests/test_cg.py holds the JAX ones: AdaptiveCG's
+    DD full-precision tier at m = 4096 (cond 1e10) against a direct f64
+    solve, refine_solve with pre_inverted and with hp_residual at m = 8192
+    against the f64 solve, dimacs._dd_solve_checked against
+    _chol_solve_ladder at m = 4096 (and its fallback on an indefinite M),
+    and dimacs._uwu through hpmm against the f64 product at n = 8192."""
+    from hdsdp_tpu_torch.ops import cg as cg_ops
+    from hdsdp_tpu_torch.ops import ddchol
+    from hdsdp_tpu_torch.solver import dimacs
+    from hdsdp_tpu_torch.utils import device as device_mod
+
+    saved = device_mod.is_tpu
+    device_mod.is_tpu = lambda: True
+    try:
+        _require(cg_ops.use_dd_full_tier(4096) and not cg_ops.use_dd_full_tier(4095)
+                 and cg_ops.use_hp_residual(8192) and cg_ops.use_inverted_precond(512),
+                 "the gates do not open at their thresholds")
+        out = {}
+        # AdaptiveCG's DD tier at m = 4096
+        m = 4096
+        M = _spd_card(torch, m, 1e10, 3, dev)
+        g = torch.Generator(device="cpu").manual_seed(4)
+        rhs = torch.randn((m, 2), generator=g, dtype=torch.float64).to(dev)
+        k0 = _dd_launches(hpmm, ddchol)
+        t0 = time.perf_counter()
+        acg = cg_ops.AdaptiveCG()
+        X, ok = acg.solve_mat_checked(M, rhs)
+        torch.cuda.synchronize()
+        out["adaptive_cg_dd_s"] = time.perf_counter() - t0
+        X_ref = torch.linalg.solve(M, rhs)
+        # tests/test_cg.py's rtol 1e-5, normwise: at m = 4096 both solutions
+        # carry a forward error ~ cond eps |X|, which an entrywise hold would
+        # put on the smallest entries
+        err = float((X - X_ref).abs().max() / X_ref.abs().max())
+        kinds = [k for k, _, _ in acg.history]
+        nf = acg.n_factor
+        X2, ok2 = acg.solve_mat_checked(M + 1e-6 * torch.eye(m, dtype=M.dtype, device=dev), rhs)
+        launches = _dd_launches(hpmm, ddchol, k0)
+        print(f"[gated] AdaptiveCG, DD tier forced, m = {m}, cond 1e10: ok {ok}, tiers {kinds}, "
+              f"max |X - X_ref| / max |X_ref| {err:.3e}; a nearby M reuses the stale DD "
+              f"factor: ok {ok2}, factors {nf} -> {acg.n_factor}; (K8, K1, K1s) launches "
+              f"{launches}; {out['adaptive_cg_dd_s']:.2f} s", flush=True)
+        _require(ok and ok2 and "factor_dd" in kinds and acg.n_factor == nf and err < 1e-5
+                 and launches[0] > 0, "AdaptiveCG's DD tier failed its holds")
+        # refine_solve, pre-inverted and with the Ozaki residual, at m = 8192
+        m = 8192
+        M = _spd_card(torch, m, 1e6, 9, dev)
+        g = torch.Generator(device="cpu").manual_seed(10)
+        B = torch.randn((m, 8), generator=g, dtype=torch.float64).to(dev)
+        X_ref = torch.linalg.solve(M, B)
+        scale = float(X_ref.abs().max())
+        L, s, ok = cg_ops._equilibrated_factor(M, f32=True)
+        Linv, _, ok_inv = cg_ops._equilibrated_factor(M, f32=True, inv=True)
+        k0 = _dd_launches(hpmm, ddchol)
+        X_inv, st_inv, it_inv = cg_ops.refine_solve(M, Linv, s, B, pre_inverted=True)
+        X_hp, st_hp, it_hp = cg_ops.refine_solve(M, L, s, B, hp_residual=True)
+        launches = _dd_launches(hpmm, ddchol, k0)
+        e_inv = float((X_inv - X_ref).abs().max()) / scale
+        e_hp = float((X_hp - X_ref).abs().max()) / scale
+        # refine_solve accepts below max(1e-10, 1e-10 |B|, 16 eps (|B| +
+        # |M| |X|)), eps the residual's (2^-52 in f64, 2^-45 through hpmm):
+        # held, in f64, to twice that; the forward error then stays below
+        # cond times the floor (tests/test_cg.py's 1e-9 and 1e-7 are that
+        # bound at its m = 600 and 384)
+        mnorm = float(M.abs().sum(1).max())
+        bnorm = float(B.norm(dim=0).max())
+
+        def backward(X, eps):
+            res = float((B - M @ X).norm(dim=0).max())
+            xnorm = float(X.norm(dim=0).max())
+            return res / max(1e-10, 1e-10 * bnorm, 16.0 * eps * (bnorm + mnorm * xnorm))
+
+        b_inv, b_hp = backward(X_inv, 2.0 ** -52), backward(X_hp, 2.0 ** -45)
+        print(f"[gated] refine_solve at m = {m}, cond 1e6: pre_inverted status {st_inv} in "
+              f"{it_inv} sweeps, forward err {e_inv:.3e}, residual / floor {b_inv:.3f}; "
+              f"hp_residual status {st_hp} in {it_hp} sweeps, forward err {e_hp:.3e}, "
+              f"residual / floor {b_hp:.3f}; (K8, K1, K1s) launches {launches}", flush=True)
+        _require(bool(ok) and bool(ok_inv) and st_inv == st_hp == cg_ops.STATUS_OK
+                 and b_inv <= 2.0 and b_hp <= 2.0 and e_inv < 1e6 * 16 * 2.0 ** -52
+                 and e_hp < 1e6 * 16 * 2.0 ** -44 and launches[1] > 0,
+                 "refine_solve's gated tiers failed their holds")
+        del M, B, X_ref, L, Linv, X_inv, X_hp
+        # the check-time DD solve against the f64 ladder, m = 4096
+        m = 4096
+        M = _spd_card(torch, m, 1e9, 21, dev)
+        g = torch.Generator(device="cpu").manual_seed(22)
+        rhs = torch.randn((m,), generator=g, dtype=torch.float64).to(dev)
+        dy = dimacs._dd_solve_checked(M, rhs)
+        ok, dy_ref = dimacs._chol_solve_ladder(M, rhs)
+        e_dy = float((dy - dy_ref).abs().max() / dy_ref.abs().max())
+        # dy is accepted at the refinement's backward-stable floor (16 eps64
+        # (|b| + |M| |dy|)): held to it, and to the f64 ladder's dy within
+        # cond eps64, what two backward-stable solves may differ by
+        # (tests/test_cg.py's 1e-9 is the JAX pair's margin at m = 96)
+        res = float((M @ dy - rhs).norm())
+        floor = 16.0 * 2.0 ** -52 * (float(rhs.norm()) + float(M.abs().sum(1).max())
+                                     * float(dy.norm()))
+        bad = dimacs._dd_solve_checked(M - 5.0 * torch.eye(m, dtype=M.dtype, device=dev), rhs)
+        print(f"[gated] dimacs._dd_solve_checked at m = {m}, cond 1e9: residual / floor "
+              f"{res / floor:.3f}, against _chol_solve_ladder {e_dy:.3e} (cond eps64 "
+              f"{1e9 * 2.0 ** -52:.3e}); on an indefinite M: "
+              f"{'None (falls back)' if bad is None else 'a solution'}", flush=True)
+        _require(ok and res <= floor and e_dy < 1e9 * 2.0 ** -52 and bad is None,
+                 "_dd_solve_checked failed its holds")
+        del M
+        # the recovery congruence through hpmm at n = 8192
+        n = 8192
+        g = torch.Generator(device="cpu").manual_seed(5)
+        U = _spd_card(torch, n, 1e3, 6, dev)[None]
+        W = torch.randn((1, n, n), generator=g, dtype=torch.float64).to(dev)
+        W = 0.5 * (W + W.mT)
+        k0 = _dd_launches(hpmm, ddchol)
+        got = dimacs._uwu(U, W)
+        launches = _dd_launches(hpmm, ddchol, k0)
+        want = U @ W @ U
+        # each Ozaki product errs by ~2^-45 of |A| |B| entrywise, so the
+        # chained pair is held against |U| |W| |U| (W's random signs cancel
+        # in U W U, not in that)
+        size = float((U.abs() @ W.abs() @ U.abs()).max())
+        e_uwu = float((got - want).abs().max()) / size
+        print(f"[gated] dimacs._uwu at n = {n} through hpmm against the f64 product: "
+              f"max |diff| / max (|U| |W| |U|) {e_uwu:.3e} (/ max |U W U| "
+              f"{float((got - want).abs().max() / want.abs().max()):.3e}); (K8, K1, K1s) "
+              f"launches {launches}", flush=True)
+        _require(e_uwu < 1e-12 and launches[1:] == (2, 4), "_uwu through hpmm failed its holds")
+    finally:
+        device_mod.is_tpu = saved
+
+
 def _batch_phase(torch, hpmm, profiled_solve):
     """solve_batch on the card: three fleets at the sizes users batch,
     each instance held to its own solo (default, fused) solve of this run.
@@ -882,7 +1324,7 @@ def _batch_phase(torch, hpmm, profiled_solve):
             "device": all(r.device.startswith("cuda") for r in rs),
         }
         if over.get("kkt_hp") == "on":
-            k1, k1s = acct["kernel_launches"]
+            k1, k1s, _ = acct["kernel_launches"]
             gpp_launches = (k1, k1s)
             builds = acct["kkt_builds"]
             # one K1 launch per product for the whole fleet: gpp's slot
@@ -981,10 +1423,11 @@ def _fused_phase(torch, solve_sdpa_file, instances, hpmm, profiled_solve, tmp):
     """The six SDPLIB-size instances through the default path, which
     picks the fused phase bodies ("iter"); raises unless each meets its
     holds.  Returns gpp500's (K1, K1s) launches, counted from 0 around
-    that solve, and each instance's ``_bits``."""
+    that solve, each instance's ``_bits`` and its wall."""
     host_refs = dict(FAMILY_REFS, gpp500=(REF_ITERS, REF_D_OBJ))
     gpp500_launches = None
     bits = {}  # name -> _bits of the first default-path solve
+    walls = {}  # name -> wall s of the last default-path solve
     for name, (ref_iters, ref_d_obj) in FUSED_REFS.items():
         path = os.path.join(tmp, name + ".dat-s")
         overrides = instances.write_instance(name, path)
@@ -1005,6 +1448,7 @@ def _fused_phase(torch, solve_sdpa_file, instances, hpmm, profiled_solve, tmp):
             runs.append(r)
             peak = torch.cuda.max_memory_allocated()
         bits[name] = _bits(runs[0])
+        walls[name] = wall
         if name == "gpp500":
             gpp500_launches = launches
         _, _, fc = profiled_solve(solve)
@@ -1069,7 +1513,7 @@ def _fused_phase(torch, solve_sdpa_file, instances, hpmm, profiled_solve, tmp):
             and rg.status == rc.status == "PRIMAL_DUAL_OPTIMAL"
             and abs(rg.n_iters - rc.n_iters) <= 1 and rel_small <= 1e-7 and same):
         raise AssertionError("gpp40 on the fused path: card/host or phase/iter disagree")
-    return gpp500_launches, bits
+    return gpp500_launches, bits, walls
 
 
 def _operator_phase(torch, solve_sdpa_file, instances, hpmm, dense_d_obj, tmp):
@@ -1358,7 +1802,7 @@ def main() -> int:
     import hdsdp_tpu_torch  # noqa: F401  (sets the no-TF32 policy)
     from hdsdp_tpu_torch.io.sdpa import write_sdpa
     from hdsdp_tpu_torch.models.synthetic import gpp_sdpa
-    from hdsdp_tpu_torch.ops import cuda_build, hpmm, hpmm_cases
+    from hdsdp_tpu_torch.ops import cuda_build, ddchol, hpmm, hpmm_cases
     from hdsdp_tpu_torch.solver.solver import solve_sdpa_file
     from hdsdp_tpu_torch.utils import instances
     from hdsdp_tpu_torch.utils.stage_profile import profiled_solve
@@ -1384,6 +1828,7 @@ def main() -> int:
     max_err, max_err_slice, times = _kernel_phase(hpmm, hpmm_cases, dev)
     f_err, f_err_slice, fleet_times = _fleet_kernel_phase(hpmm, dev)
     max_err, max_err_slice = max(max_err, f_err), max(max_err_slice, f_err_slice)
+    dd_err, dd_times = _dd_kernel_phase(torch, ddchol, dev)
 
     launches, slice_launches, wall, gpp_d_obj = _slice_phase(torch, hpmm, solve_sdpa_file,
                                                              write_sdpa, gpp_sdpa)
@@ -1393,7 +1838,7 @@ def main() -> int:
 
     # -- the default path: the fused phase bodies -------------------------
     with tempfile.TemporaryDirectory() as tmp:
-        fused_launches, fused_bits = _fused_phase(torch, solve_sdpa_file, instances, hpmm,
+        fused_launches, fused_bits, fused_walls = _fused_phase(torch, solve_sdpa_file, instances, hpmm,
                                                   profiled_solve, tmp)
 
     # -- operator mode: m = 25,001 by default, two instances forced --------
@@ -1408,6 +1853,12 @@ def main() -> int:
     # -- fleets of same-shape instances: solve_batch -----------------------
     batch_launches = _batch_phase(torch, hpmm, profiled_solve)
 
+    # -- the double-single path: maxG51 through ddchol, K8 and K1/K1s -------
+    with tempfile.TemporaryDirectory() as tmp:
+        dd_launches = _dd_phase(torch, solve_sdpa_file, instances, hpmm,
+                                fused_walls["maxG51"], tmp)
+    _gated_phase(torch, hpmm, dev)
+
     # -- the mesh path: one NCCL rank here, then four gloo ranks ----------
     mesh1 = _mesh1_phase(instances, dict(dense_d_obj, gpp500=gpp_d_obj))
     mesh1_launches = mesh1[("gpp500", "")]["launches"]
@@ -1415,7 +1866,7 @@ def main() -> int:
 
     _summary(torch, times, fleet_times, max_err, max_err_slice, wall,
              (launches, slice_launches), fused_launches, batch_launches,
-             mesh1_launches, mesh4_launches)
+             mesh1_launches, mesh4_launches, dd_err, dd_times, dd_launches)
     return 0
 
 
@@ -1615,7 +2066,8 @@ def _mesh4_phase(instances, mesh1):
 
 
 def _summary(torch, times, fleet_times, max_err, max_err_slice, wall, slice_launches,
-             fused_launches, batch_launches, mesh1_launches, mesh4_launches):
+             fused_launches, batch_launches, mesh1_launches, mesh4_launches, dd_err, dd_times,
+             dd_launches):
     """The kernel table line, the card's line and the contract line."""
     launches, slice_launches = slice_launches
     # K1 at the pair shape; K1s as the mean of the four operand launches of
@@ -1646,7 +2098,8 @@ def _summary(torch, times, fleet_times, max_err, max_err_slice, wall, slice_laun
         "launches_by_path": {"slice (host loop)": launches, "fused": fused_launches[0],
                              "batch (gpp fleet)": batch_launches[0],
                              "mesh1 (gpp500, NCCL, 1 rank)": mesh1_launches[0],
-                             "mesh4 (gpp500, gloo, rank 0 of 4)": mesh4_launches[0]},
+                             "mesh4 (gpp500, gloo, rank 0 of 4)": mesh4_launches[0],
+                             **{DD_PATHS[k]: v[1] for k, v in dd_launches.items()}},
         # one rank's rows of the pair product on a 4-rank mesh
         "row_shard": {"shape": "[126,500]@[500,501]", "ms": tr["pairs_f64"],
                       "plain_ms": tr["pairs_plain"], "bound_ms": tr["pairs_bound"][0],
@@ -1674,7 +2127,8 @@ def _summary(torch, times, fleet_times, max_err, max_err_slice, wall, slice_laun
         "launches_by_path": {"slice (host loop)": slice_launches, "fused": fused_launches[1],
                              "batch (gpp fleet)": batch_launches[1],
                              "mesh1 (gpp500, NCCL, 1 rank)": mesh1_launches[1],
-                             "mesh4 (gpp500, gloo, rank 0 of 4)": mesh4_launches[1]},
+                             "mesh4 (gpp500, gloo, rank 0 of 4)": mesh4_launches[1],
+                             **{DD_PATHS[k]: v[2] for k, v in dd_launches.items()}},
         # the four operand launches of one rank's two products on a 4-rank mesh
         "row_shard": {
             "shape": "[126,500] row blocks of FU and pair",
@@ -1683,6 +2137,28 @@ def _summary(torch, times, fleet_times, max_err, max_err_slice, wall, slice_laun
                          + tr["slice_a_plain"] + tr["slice_b_plain"]) / 4,
             "bound_ms": (tfr["slice_a_bound"][0] + tfr["slice_b_bound"][0]
                          + tr["slice_a_bound"][0] + tr["slice_b_bound"][0]) / 4},
+    }, {
+        # K8 at B = 256; its main path is (a), maxG51 with cone_fp="dd"
+        "name": "dd_panel",
+        "route": "cuda",
+        "source": "hdsdp_tpu_torch/csrc/dd_panel.cu",
+        "replaces": "hdsdp_tpu/ops/ddchol.py:44",
+        "replaces_what": "_panel_factor, a lax.fori_loop XLA compiles (no Pallas kernel)",
+        "launches": dd_launches["a"][0],
+        "max_abs_err": dd_err,
+        "ms": dd_times["k8"],
+        "plain_ms": dd_times["k8_plain"],
+        "bound_ms": dd_times["k8_bound"][0],
+        "bound_by": dd_times["k8_bound"][1],
+        "library_ms": dd_times["cholesky_f64"],
+        "library_call": "torch.linalg.cholesky_ex of the same panel in f64, a yardstick",
+        "fleet": 4,
+        "fleet_ms": dd_times["k8_fleet"],
+        "fleet_singles_ms": dd_times["k8_fleet_singles"],
+        "fleet_bound_ms": dd_times["k8_fleet_bound"][0],
+        "launches_by_path": {DD_PATHS[k]: v[0] for k, v in dd_launches.items()},
+        "whole_factor_maxG51_ms": dd_times["factor"],
+        "whole_factor_maxG51_cholesky_f64_ms": dd_times["factor_cholesky_f64"],
     }]
     print(f"[summary] whole hpmm at the pair shape: {tp['hpmm_device']:.4f} ms on the device, "
           f"{tp['hpmm']:.4f} ms per eager call; f64 torch.matmul {tp['matmul']:.4f} / "

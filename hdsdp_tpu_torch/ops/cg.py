@@ -13,9 +13,17 @@ count degrades.
 The loops run on the host and read one scalar per step (the JAX package
 runs them as one ``lax.while_loop``).  ``factor_scaled_f32`` is the
 inverted f32 factor behind the preconditioner of the matrix-free operator
-(solver.algo).  Not ported, because their gates are false off a TPU in the
-JAX package: AdaptiveCG's pre-inverted factor, its double-single
-full-precision tier and the Ozaki residual product.
+(solver.algo).
+
+Three tiers were written for a TPU, where f64 is emulated, and are gated
+by module-level functions as in the JAX package: the pre-inverted f32
+preconditioner (:func:`use_inverted_precond`, m >= 512), AdaptiveCG's
+double-single full-precision tier (:func:`use_dd_full_tier`, m >= 4096:
+ops.ddchol's factor, pre-inverted, applied through the Ozaki matmul) and
+the Ozaki residual product of the refinement (:func:`use_hp_residual`,
+m >= 8192).  Each gate also requires ``utils.device.is_tpu()``, which is
+false wherever the port runs, so they are off by default; tests force
+them on with monkeypatch.
 """
 
 from __future__ import annotations
@@ -24,8 +32,10 @@ import time
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from hdsdp_tpu_torch.ops import chol as chol_ops
+from hdsdp_tpu_torch.utils import device
 
 STATUS_OK = 0
 STATUS_MAXITER = 1
@@ -91,7 +101,29 @@ def pcg(M, rhs, precond, max_iter: int, restart_freq: int = 20,
     return CGResult(x=x, status=status, iters=it, resi_norm=torch.linalg.vector_norm(r))
 
 
-def _equilibrated_factor(M: torch.Tensor, f32: bool = True):
+def use_inverted_precond(m: int) -> bool:
+    """Gate of the pre-inverted preconditioner: on a TPU XLA's multi-RHS
+    triangular solve is slow and allocates an [k, m, m] temporary, so the
+    JAX package inverts the f32 factor once (ops.chol.blocked_tri_inverse)
+    and applies it as two matmuls per sweep from m = 512 on."""
+    return m >= 512 and device.is_tpu()
+
+
+def use_dd_full_tier(m: int) -> bool:
+    """Gate of AdaptiveCG's double-single full-precision tier: on a TPU at
+    m >= 4096 the escalation past f32 is the DD blocked factor (ops.ddchol,
+    ~2^-45, kappa to ~3e13) instead of XLA's emulated f64 Cholesky."""
+    return m >= 4096 and device.is_tpu()
+
+
+def use_hp_residual(m: int) -> bool:
+    """Gate of the Ozaki residual product of the refinement: on a TPU at
+    m >= 8192 R = B - M X runs through ops.hpmm with M sliced once per
+    factorization, where XLA's emulated f64 product expands M eightfold."""
+    return m >= 8192 and device.is_tpu()
+
+
+def _equilibrated_factor(M: torch.Tensor, f32: bool = True, inv: bool = False):
     """Jacobi-equilibrated Cholesky preconditioner of an f64 SPD M.
 
     D^-1/2 M D^-1/2 has unit diagonal and entries in [-1, 1] (SPD), so an
@@ -100,13 +132,22 @@ def _equilibrated_factor(M: torch.Tensor, f32: bool = True):
     Returns (L, s, ok) with s = 1/sqrt(diag(M)); L is f32 (the fast path)
     or f64 (the escalation tier for kappa > 1/eps_f32).  ``ok`` is a
     0-dim bool tensor: the factorization's own failure report (the JAX
-    package reads the same failure from non-finite entries of L)."""
+    package reads the same failure from non-finite entries of L).
+
+    ``inv`` returns L^-1 (ops.chol.blocked_tri_inverse) instead of L, the
+    pre-inverted form of :func:`use_inverted_precond`; a near-zero factor
+    diagonal that overflows the explicit inverse fails ``ok`` here, at
+    factor time."""
     d = torch.diagonal(M)
     s = torch.rsqrt(torch.where(d > 0.0, d, 1.0))
     Ms = M * s[:, None] * s[None, :]
     if f32:
         Ms = Ms.to(torch.float32)
     ok, L = chol_ops.psd_check(Ms)
+    if inv:
+        eye = torch.eye(M.shape[0], dtype=L.dtype, device=L.device)
+        L = chol_ops.blocked_tri_inverse(torch.where(ok, L, eye))
+        ok = ok & torch.isfinite(L).all()
     return L, s, ok
 
 
@@ -144,7 +185,8 @@ def chol_apply(L: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
 
 
 def refine_solve(M, L, s, B, max_iter: int = 40, abs_tol: float = 1e-10,
-                 rel_tol: float = 1e-10):
+                 rel_tol: float = 1e-10, pre_inverted: bool = False,
+                 hp_residual: bool = False):
     """Mixed-precision iterative refinement: f32 (or f64) factor of the
     equilibrated M, f64 residuals.  Solves M X = B [m, k]:
 
@@ -158,11 +200,27 @@ def refine_solve(M, L, s, B, max_iter: int = 40, abs_tol: float = 1e-10,
     (|B| + |M|_inf |X|)): the residual a backward-stable direct solve
     would leave; demanding less is unreachable at high kappa.
 
+    ``pre_inverted``: L is L^-1 and the apply is two matrix products.
+    ``hp_residual``: M X runs through the Ozaki matmul (M sliced once),
+    and eps in the acceptance level is its 2^-45.
+
     Returns (X, status, sweeps).  One host read of three norms per
     sweep."""
+    eps_res = 2.0 ** -45 if hp_residual else _EPS64
+    if hp_residual:
+        from hdsdp_tpu_torch.ops import hpmm
+
+        m_sl, e_m = hpmm.hpmm_slice_a(M)
+
+        def mdot(X):
+            return hpmm.hpmm_presliced(m_sl, e_m, X)
+    else:
+        def mdot(X):
+            return M @ X
 
     def apply_p(R):
-        T = chol_apply(L, (s[:, None] * R).to(L.dtype))
+        U = (s[:, None] * R).to(L.dtype)
+        T = L.T @ (L @ U) if pre_inverted else chol_apply(L, U)
         return s[:, None] * T.to(torch.float64)
 
     def colnorm(A):
@@ -172,11 +230,11 @@ def refine_solve(M, L, s, B, max_iter: int = 40, abs_tol: float = 1e-10,
 
     def state(X, R):
         rn, xn = torch.stack([colnorm(R), colnorm(X)]).tolist()
-        tol = max(abs_tol, rel_tol * bnorm, 16.0 * _EPS64 * (bnorm + mnorm * xn))
+        tol = max(abs_tol, rel_tol * bnorm, 16.0 * eps_res * (bnorm + mnorm * xn))
         return rn, tol
 
     X = apply_p(B)
-    R = B - M @ X
+    R = B - mdot(X)
     rn, tol = state(X, R)
     it = 0
     if rn != rn:
@@ -186,7 +244,7 @@ def refine_solve(M, L, s, B, max_iter: int = 40, abs_tol: float = 1e-10,
     while True:
         rn_prev = rn
         X = X + apply_p(R)
-        R = B - M @ X
+        R = B - mdot(X)
         rn, tol = state(X, R)
         it += 1
         if rn != rn:
@@ -217,7 +275,9 @@ class AdaptiveCG:
         self.abs_tol = abs_tol
         self.rel_tol = rel_tol
         self.reuse_threshold = reuse_threshold
-        self.chol_fac = None  # (L, s) stale preconditioner (f32 or f64)
+        # stale preconditioner: (L, s, pre-inverted) with L f32 or f64, or
+        # ((Gh, Gl), None, "dd"): G = L^-1 of the double-single tier
+        self.chol_fac = None
         self._fresh = False  # factor computed for the current M
         self._f64_left = 0  # systems left before retrying the f32 tier
         self.n_factor = 0
@@ -234,7 +294,24 @@ class AdaptiveCG:
 
     def _factor(self, M, f32: bool) -> bool:
         t0 = time.time()
-        L, s, ok = _equilibrated_factor(M, f32=f32)
+        if not f32 and use_dd_full_tier(M.shape[0]):
+            # the full-precision tier written for a TPU: the DD blocked
+            # factor (~2^-45, kappa to ~3e13), pre-inverted so that every
+            # apply is two Ozaki products
+            from hdsdp_tpu_torch.ops import ddchol
+
+            fac = ddchol.factor(M)
+            self.n_factor += 1
+            self._fresh = True
+            if not bool(ddchol.ok(fac)):
+                self.chol_fac = None
+                self.history.append(("factor_dd", "fail", time.time() - t0))
+                return False
+            self.chol_fac = (ddchol.tri_inverse(fac), None, "dd")
+            self.history.append(("factor_dd", "ok", time.time() - t0))
+            return True
+        inv = f32 and use_inverted_precond(M.shape[0])
+        L, s, ok = _equilibrated_factor(M, f32=f32, inv=inv)
         self.n_factor += 1
         self._fresh = True
         kind = "factor32" if f32 else "factor64"
@@ -242,17 +319,74 @@ class AdaptiveCG:
             self.chol_fac = None
             self.history.append((kind, "fail", time.time() - t0))
             return False
-        self.chol_fac = (L, s)
+        self.chol_fac = (L, s, inv)
         self.history.append((kind, "ok", time.time() - t0))
         return True
 
+    def _refine_dd(self, M, B):
+        """Refinement sweeps against the pre-inverted DD factor: the
+        applies A^-1 R = G^T (G R) are Ozaki products, the residual is
+        f64 (or Ozaki under :func:`use_hp_residual`), and the acceptance
+        level is refine_solve's backward-stable floor.  A non-finite
+        residual ends the sweeps at once, as does one that keeps more than
+        0.9 of the last."""
+        from hdsdp_tpu_torch.ops import dd, hpmm
+
+        gh, gl = self.chol_fac[0]
+        m = M.shape[0]
+        npad = gh.shape[0]
+
+        def papply(R):
+            rh, rl = dd.from_f64(F.pad(R, (0, 0, 0, npad - m)))
+            yh, yl = hpmm.hpmm_dd(gh, gl, rh, rl)
+            xh, xl = hpmm.hpmm_dd(gh.T, gl.T, yh, yl)
+            return dd.to_f64(xh, xl)[:m]
+
+        if use_hp_residual(m):
+            m_sl, e_m = hpmm.hpmm_slice_a(M)
+
+            def mdot(X):
+                return hpmm.hpmm_presliced(m_sl, e_m, X)
+
+            eps_res = 2.0 ** -45
+        else:
+            def mdot(X):
+                return M @ X
+
+            eps_res = _EPS64
+
+        def colnorm(A):
+            return torch.max(torch.linalg.vector_norm(A, dim=0))
+
+        bnorm, mnorm = torch.stack([colnorm(B), torch.max(torch.sum(torch.abs(M), dim=1))]).tolist()
+        X = papply(B)
+        it = 0
+        rn_prev = None
+        for it in range(1, self.max_iter + 1):
+            R = B - mdot(X)
+            rn, xn = torch.stack([colnorm(R), colnorm(X)]).tolist()
+            if rn != rn:
+                return X, STATUS_NUMERICAL, it
+            tol = max(self.abs_tol, self.rel_tol * bnorm, 16.0 * eps_res * (bnorm + mnorm * xn))
+            if rn < tol:
+                return X, STATUS_OK, it
+            if rn_prev is not None and rn > 0.9 * rn_prev:
+                return X, STATUS_MAXITER, it
+            rn_prev = rn
+            X = X + papply(R)
+        return X, STATUS_MAXITER, it
+
     def _refine(self, M, rhs_mat):
         t0 = time.time()
-        L, s = self.chol_fac
-        X, status, iters = refine_solve(
-            M, L, s, rhs_mat, max_iter=self.max_iter,
-            abs_tol=self.abs_tol, rel_tol=self.rel_tol,
-        )
+        L, s, inv = self.chol_fac
+        if inv == "dd":
+            X, status, iters = self._refine_dd(M, rhs_mat)
+        else:
+            X, status, iters = refine_solve(
+                M, L, s, rhs_mat, max_iter=self.max_iter,
+                abs_tol=self.abs_tol, rel_tol=self.rel_tol,
+                pre_inverted=inv, hp_residual=use_hp_residual(M.shape[0]),
+            )
         self.last_iters = int(iters)
         self.last_status = int(status)
         self.history.append((
@@ -299,7 +433,7 @@ class AdaptiveCG:
                 if self.last_iters > self.reuse_threshold:
                     self.chol_fac = None  # refresh on the next system
                 return X, True
-            full_tier = self.chol_fac[0].dtype == torch.float64
+            full_tier = self.chol_fac[2] == "dd" or self.chol_fac[0].dtype == torch.float64
             self.chol_fac = None
             if self._fresh and full_tier:
                 return X, False  # fresh full-precision factor failed

@@ -39,7 +39,15 @@ distributed blocked Cholesky ("shchol") or solved by the row-sharded
 Jacobi-PCG ("shcg", from ``kkt_cg_threshold`` rows on), and ``y`` is
 checked to agree bit for bit on every rank once an iteration.
 
-Not ported (raise NotImplementedError): the double-single factors.
+The double-single arithmetic path (ops.ddchol, kernel K8): with
+``cone_fp="dd"`` every cone factor and interior check of a single block
+with n >= 512 is the DD blocked Cholesky (``cones.cone_dd``); with
+``kkt_fp="dd"`` the Schur factor is the DD Cholesky with its 6-rung
+regularization ladder, solved by f64 iterative refinement against the
+kept M (``_dd_refined_solve``), escalating to the f64 ladder when the
+refinement stalls.  Their "auto" settings engage on a TPU only, as in the
+JAX package (utils.device.is_tpu).  Not ported (raise
+NotImplementedError): a dtype other than float64, and "dd" on a mesh.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ from hdsdp_tpu_torch.ops.cg import AdaptiveCG, factor_scaled_f32
 from hdsdp_tpu_torch.ops.ratio import vector_ratio_test
 from hdsdp_tpu_torch.solver.cones import ConeSystem, chunk_starts
 from hdsdp_tpu_torch.solver.params import Params, adjust_params
+from hdsdp_tpu_torch.utils import device
 from hdsdp_tpu_torch.utils.device import DTYPE
 from hdsdp_tpu_torch.utils.log import Logger
 
@@ -108,13 +117,13 @@ def choose_fused_mode(m: int, n_max: int, n_sum: int, kkt_free: bool, params: Pa
     return False if kkt_free else fused
 
 
-def _check_supported(params: Params, m: int) -> None:
+def _check_supported(params: Params, m: int, mesh=None) -> None:
     """Raise for configurations whose code paths are not ported yet."""
     p = params
     if not (isinstance(p.fused, bool) or p.fused in ("auto", "phase", "iter")):
         raise ValueError(f"fused={p.fused!r}: expected True, False, 'auto', 'phase' or 'iter'")
-    if p.kkt_fp == "dd" or p.cone_fp == "dd":
-        raise NotImplementedError("ddchol")
+    if mesh is not None and "dd" in (p.kkt_fp, p.cone_fp):
+        raise NotImplementedError("kkt_fp / cone_fp = 'dd' on a mesh")
     if p.dtype != "float64":
         raise NotImplementedError(f"dtype={p.dtype!r}")
 
@@ -129,7 +138,7 @@ class DualIPM:
         self.params = params
         self.f = prob.features
         adjust_params(params, self.f)
-        _check_supported(params, prob.m)
+        _check_supported(params, prob.m, mesh)
 
         self.m = prob.m
         self.dtype = DTYPE
@@ -155,6 +164,7 @@ class DualIPM:
             self.cones = ShardedConeSystem(prob, mesh, obj_scal=self.obj_scal)
         self.cones.ratio_mode = params.ratio_test
         self.cones.lanczos_dim = params.lanczos_dim
+        self.cones.cone_dd = self._use_cone_dd(prob)
         self.cones.kkt_hp = params.kkt_hp == "on"
         self.cones.dual_hp = self._use_dual_hp()
         # matrix-free Schur operator (sparse-Schur analogue, ref
@@ -213,8 +223,9 @@ class DualIPM:
 
         # KKT exports (device)
         self.kkt = None
-        # ("chol", L), ("lu", (LU, pivots)), ("cg", M), ("opcg", None),
-        # and on a mesh ("shchol", ShardedCholFactor) or ("shcg", RowShard)
+        # ("chol", L), ("lu", (LU, pivots)), ("ddchol", (DDFactor, M)),
+        # ("cg", M), ("opcg", None), and on a mesh ("shchol",
+        # ShardedCholFactor) or ("shcg", RowShard)
         self.Mfac = None
         self._cg: Optional[AdaptiveCG] = None  # made at the first CG system
         self.psdp = None  # the PSDPRefiner that ended the solve, if one did
@@ -251,6 +262,32 @@ class DualIPM:
             # the sharded operator matvec (parallel.schur)
             return False
         return self.m >= self.params.kkt_free_threshold
+
+    def _use_cone_dd(self, prob) -> bool:
+        """The DD backend of the cone factor and the interior checks:
+        "dd" forces it; "auto" takes it on a TPU for a single large block
+        (the JAX package's gate: there XLA's emulated f64 Cholesky
+        dominates the iteration), so never here."""
+        fp = self.params.cone_fp
+        if fp == "dd":
+            return True
+        if fp != "auto" or self.mesh is not None:
+            return False
+        if max(prob.block_dims, default=0) < self.params.cone_dd_threshold:
+            return False
+        if any(g.nblk != 1 for g in prob.groups):
+            return False
+        return device.is_tpu()
+
+    def _use_dd(self) -> bool:
+        """The DD backend of the Schur factor: "dd" forces it; "auto"
+        takes it on a TPU from kkt_dd_threshold rows on, so never here."""
+        fp = self.params.kkt_fp
+        if fp == "dd":
+            return True
+        if fp != "auto" or self.m < self.params.kkt_dd_threshold:
+            return False
+        return device.is_tpu()
 
     def _use_dual_hp(self) -> bool:
         """Ozaki dual-slack assembly: only when kkt_hp is on and the
@@ -409,6 +446,27 @@ class DualIPM:
         return ("lu", torch.linalg.lu_factor(M))
 
     def _direct_factor(self, M) -> None:
+        """The Schur factor.  With the DD backend (``_use_dd``): the DD
+        blocked Cholesky with a 6-rung regularization ladder, kept WITH
+        the unshifted M, since its raw solve has a forward error of ~kappa
+        2^-45 and solve_kkt refines against M in f64; when every rung
+        fails, the f64 ladder."""
+        if self._use_dd():
+            from hdsdp_tpu_torch.ops import ddchol
+
+            fac = ddchol.factor(M)
+            if bool(ddchol.ok(fac)):
+                self.Mfac = ("ddchol", (fac, M))
+                return
+            base = float(torch.max(torch.diagonal(M))) * 1e-14 + 1e-300
+            eye = self._eye(M.shape[0])
+            for k in range(6):
+                fac = ddchol.factor(M + base * (10.0 ** (2 * k)) * eye)
+                if bool(ddchol.ok(fac)):
+                    # the shifted factor is only the preconditioner: the
+                    # refinement targets the original M
+                    self.Mfac = ("ddchol", (fac, M))
+                    return
         self.Mfac = self._f64_factor_ladder(M)
 
     def _row_sharded(self) -> bool:
@@ -721,7 +779,46 @@ class DualIPM:
             # the originating operator solve already counted these
             # right-hand sides
             self._factor_stats["n_solve"] = n0
+            # a stalled DD refinement inside may have upgraded the factor
+            # (ddchol -> chol): keep the upgrade
+            self._op_escalated = self.Mfac
             self.Mfac = saved
+
+    def _dd_refined_solve(self, fac_m, B: torch.Tensor) -> torch.Tensor:
+        """DD-factor solve + f64 iterative refinement against the kept M:
+        takes the forward error from kappa 2^-45 down to the f64 direct
+        solve's grade.  Sweeps until the worst column's relative residual
+        is <= 1e-12 or a sweep keeps more than 0.9 of the last one's; a
+        non-finite residual also ends the sweeps at once (the JAX package's
+        comparison never trips on NaN and runs all ten sweeps first,
+        hdsdp_tpu/solver/algo.py:864; the outcome, the f64 ladder below, is
+        the same).  Accepted at <= 1e-9; else the f64 ladder factors M and
+        is KEPT for every later solve against this M."""
+        from hdsdp_tpu_torch.ops import ddchol
+
+        fac, M = fac_m
+        X = ddchol.solve(fac, B)
+        bscale = torch.clamp(torch.linalg.vector_norm(B, dim=0), min=1e-300)
+
+        def worst_of(X):
+            R = B - M @ X
+            return R, float(torch.max(torch.linalg.vector_norm(R, dim=0) / bscale))
+
+        prev = None
+        for _ in range(10):
+            R, worst = worst_of(X)
+            if worst <= 1e-12:
+                return X
+            if worst != worst or (prev is not None and worst > 0.9 * prev):
+                break  # stalled, or diverged: more sweeps cannot reach acceptance
+            prev = worst
+            X = X + ddchol.solve(fac, R)
+        _, worst = worst_of(X)
+        if worst <= 1e-09:
+            return X
+        self.log.info(f"DD refinement stalled (rel {worst:.2e}); f64 factor")
+        self.Mfac = self._f64_factor_ladder(M)
+        return self._solve_mat(B)
 
     def _solve_mat(self, B: torch.Tensor) -> torch.Tensor:
         kind, fac = self.Mfac
@@ -752,6 +849,8 @@ class DualIPM:
             return self._op_solve(rhs[:, None])[:, 0]
         if kind in ("shchol", "shcg"):
             return self._sharded_solve(rhs)
+        if kind == "ddchol":
+            return self._dd_refined_solve(fac, rhs[:, None])[:, 0]
         if kind == "cg":
             x, ok = self._cg.solve_checked(fac, rhs)
             if ok:
@@ -776,6 +875,10 @@ class DualIPM:
         if kind == "shcg":
             # one system at a time, as the JAX package solves them
             return [self.solve_kkt(r) for r in rhs_list]
+        if kind == "ddchol":
+            self._factor_stats["n_solve"] += len(rhs_list)
+            sols = self._dd_refined_solve(fac, torch.stack(rhs_list, dim=1))
+            return [sols[:, i] for i in range(len(rhs_list))]
         if kind == "cg":
             self._factor_stats["n_solve"] += len(rhs_list)
             X, ok = self._cg.solve_mat_checked(fac, torch.stack(rhs_list, dim=1))

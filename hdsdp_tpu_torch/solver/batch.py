@@ -8,8 +8,9 @@ instances (parameter sweeps, max-cut over graph ensembles, SDP relaxation
 batches) rides one set of launches instead: every tensor of the fused
 phase bodies (solver/fused.py) gains a leading instance axis, so each
 kernel (batched Cholesky, Schur products, the Lanczos and its one
-``eigh``, and the Ozaki kernels K1/K1s under ``kkt_hp="on"``) runs once
-for the whole fleet.
+``eigh``, the Ozaki kernels K1/K1s under ``kkt_hp="on"``, and with
+``cone_fp="dd"`` the double-single cone factor: K8 and K1/K1s with the
+fleet's N panels in one launch) runs once for the whole fleet.
 
 Where the JAX module has ``jax.vmap`` turn every data-dependent
 ``lax.cond`` into a select and every ``lax.while_loop`` into a loop that
@@ -35,7 +36,7 @@ from typing import List, Sequence
 import torch
 
 from hdsdp_tpu_torch.models.problem import SDPProblem
-from hdsdp_tpu_torch.ops import hpmm
+from hdsdp_tpu_torch.ops import ddchol, hpmm
 from hdsdp_tpu_torch.solver import algo, dimacs, fused
 from hdsdp_tpu_torch.solver.params import Params
 from hdsdp_tpu_torch.solver.solver import HDSDPSolver, Result
@@ -115,14 +116,14 @@ def solve_batch(probs: Sequence[SDPProblem], device="cuda",
     # or the solo re-solves), recorded in every Result's stats["fleet"]
     # once a fleet ran:
     # trips of the phase loops, KKT builds by kind, decision reads, and
-    # launches of K1 and K1s
+    # launches of K1, K1s and (cone_fp="dd") K8
     acct = {"size": len(live), "iterations": 0, "kkt_builds": {}, "host_reads": 0,
-            "kernel_launches": [0, 0]}
+            "kernel_launches": [0, 0, 0]}
 
     def drive(idx, body, st, is_phase_b):
         c = fused.stack_cones([fused._cones_from_ipm(ipms[i]) for i in idx])
         c.cfg = cfg
-        k1, k1s = hpmm.KERNEL_LAUNCHES, hpmm.SLICE_LAUNCHES
+        k1, k1s, k8 = hpmm.KERNEL_LAUNCHES, hpmm.SLICE_LAUNCHES, ddchol.PANEL_LAUNCHES
 
         def step(s):
             acct["iterations"] += 1
@@ -134,6 +135,7 @@ def solve_batch(probs: Sequence[SDPProblem], device="cuda",
             acct["kkt_builds"][kind] = acct["kkt_builds"].get(kind, 0) + n
         acct["kernel_launches"][0] += hpmm.KERNEL_LAUNCHES - k1
         acct["kernel_launches"][1] += hpmm.SLICE_LAUNCHES - k1s
+        acct["kernel_launches"][2] += ddchol.PANEL_LAUNCHES - k8
         return st
 
     # ---- Phase A, the whole fleet

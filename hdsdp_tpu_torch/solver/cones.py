@@ -111,14 +111,15 @@ def assemble(groups, lp, dC, scal, y, dEye, hp: bool = False):
     return S, s_lp
 
 
-def factor(S, s_lp):
+def factor(S, s_lp, dd: bool = False):
     """(ok, L): ok is a 0-dim bool tensor (not yet read on the host), or
-    one per instance of a fleet."""
+    one per instance of a fleet.  ``dd`` factors single large blocks with
+    the double-single Cholesky (ops.chol.psd_factor, Params.cone_fp)."""
     lead = _lead(S, s_lp) if (S or s_lp is not None) else ()
     Ls = []
     ok = None
     for Sg in S:
-        good, L = chol_ops.psd_check(Sg, lead)
+        good, L = chol_ops.psd_factor(Sg, use_dd=dd, lead=lead)
         Ls.append(L)
         ok = good if ok is None else ok & good
     if s_lp is not None:
@@ -370,11 +371,12 @@ def kkt_rows(groups, lp, Us, s_lp, bound_extra, i0: int, m: int, chunk: int) -> 
     return out
 
 
-def interior_check(groups, lp, dC, scal, y, dEye, tau, lo, up, hp: bool = False):
+def interior_check(groups, lp, dC, scal, y, dEye, tau, lo, up, hp: bool = False,
+                   dd: bool = False):
     """Assemble + factor + bound slacks; flags = [cones ok, bound ok] as
     one bool tensor, so the caller reads both with one host sync."""
     S, s_lp = assemble(groups, lp, dC, scal, y, dEye, hp=hp)
-    ok, L = factor(S, s_lp)
+    ok, L = factor(S, s_lp, dd=dd)
     sl = y - schur_ops.bcast(tau * lo, 1)
     su = schur_ops.bcast(tau * up, 1) - y
     bok = torch.all(sl > 0, dim=-1) & torch.all(su > 0, dim=-1)
@@ -534,6 +536,8 @@ class ConeSystem:
         self.n_cones = len(prob.block_dims) + (1 if self.has_lp else 0)
         self._lz_warm = None
 
+    # double-single cone factor and interior checks (Params.cone_fp)
+    cone_dd: bool = False
     # Ozaki-sliced Schur assembly for slot-major groups (Params.kkt_hp)
     kkt_hp: bool = False
     # Ozaki-sliced dual-slack assembly, engaged when r*m*n^2 is large
@@ -546,7 +550,7 @@ class ConeSystem:
         return assemble(self.groups, self.lp, dC, scal, y, dEye, hp=self.dual_hp)
 
     def factor(self, S, s_lp):
-        return factor(S, s_lp)
+        return factor(S, s_lp, dd=self.cone_dd)
 
     def logdet(self, L, s_lp):
         return logdet(L, s_lp)
@@ -609,7 +613,7 @@ class ConeSystem:
 
     def interior_check(self, dC, scal, y, dEye, tau, lo, up):
         return interior_check(self.groups, self.lp, dC, scal, y, dEye, tau,
-                              lo, up, hp=self.dual_hp)
+                              lo, up, hp=self.dual_hp, dd=self.cone_dd)
 
     def ratio_test(self, L, s_lp, dS, ds_lp):
         """Max alpha with S + alpha*dS >= 0 over all cones (ref
@@ -639,7 +643,7 @@ class ConeSystem:
     def add_step_check(self, S, s_lp, dS, ds_lp, alpha):
         S_new = tuple(Sg + alpha * dSg for Sg, dSg in zip(S, dS))
         s_new = s_lp + alpha * ds_lp if s_lp is not None else None
-        ok, Lnew = factor(S_new, s_new)
+        ok, Lnew = factor(S_new, s_new, dd=self.cone_dd)
         return ok, S_new, s_new, Lnew
 
     def atx(self, X_list, x_lp):

@@ -65,9 +65,11 @@ What the JAX module needs for XLA and the port does not: the program
 builders ``make_phase_a``/``make_phase_b``/``make_hsd`` with their cache
 and keys (here both modes drive the same body with ``_drive``), buffer
 donation, ``raw`` for vmap.  The trace-time dicts ``_RATIO_CFG``,
-``_KKT_CFG`` and ``_CONE_CFG`` are one ``Config`` on ``Cones``.  The
-double-single cone factor (``_CONE_CFG["dd"]``) and the TPU-gated tiers of
-refine_solve are not ported (ops.cg, ops.chol).
+``_KKT_CFG`` and ``_CONE_CFG`` are one ``Config`` on ``Cones``; with
+``cone_dd`` (``_CONE_CFG["dd"]``, Params.cone_fp) the cone factor of
+every interior check is the double-single Cholesky (ops.ddchol, kernel
+K8).  Under kkt_mp="on" the refinement takes the TPU-gated tiers of ops.cg
+(pre-inverted factor, Ozaki residual) when their gates are on.
 """
 
 from __future__ import annotations
@@ -117,7 +119,8 @@ class Maker(_Tree):
 @dataclass
 class Config:
     """What the JAX module fixes at trace time: the ratio test's mode and
-    depths, the mixed-precision Schur backend and the Ozaki assemblies."""
+    depths, the mixed-precision Schur backend, the Ozaki assemblies and
+    the double-single cone factor."""
 
     ratio_mode: str = "auto"
     krylov: int = 30
@@ -125,6 +128,7 @@ class Config:
     mp: bool = False
     hp: bool = False
     dhp: bool = False
+    cone_dd: bool = False
 
 
 @dataclass
@@ -389,7 +393,7 @@ def assemble(c: Cones, dC, scal, y, dEye):
 
 
 def factor(c: Cones, S, s_lp):
-    return cone_ops.factor(S, s_lp)
+    return cone_ops.factor(S, s_lp, dd=c.cfg.cone_dd)
 
 
 def logdet(c: Cones, L, s_lp):
@@ -466,18 +470,27 @@ def _factor_m_f64(c: Cones, M):
 
 def _factor_m_mp(c: Cones, M):
     """f32 equilibrated factor + probe; f64 ladder only when the probe
-    shows refinement cannot reach f64 accuracy (kappa ~> 1/eps_f32)."""
-    L32, s, ok32 = cg_ops._equilibrated_factor(M, f32=True)
-    L32 = torch.where(ok32, L32, torch.eye(M.shape[0], dtype=torch.float32,
-                                           device=M.device))
-    probe = torch.ones((M.shape[0], 1), dtype=M.dtype, device=M.device)
-    _, p_status, _ = cg_ops.refine_solve(M, L32, s, probe, max_iter=20)
+    shows refinement cannot reach f64 accuracy (kappa ~> 1/eps_f32).
+
+    The TPU-gated tiers ride in the factor tuple, so that solve_m applies
+    the factor the way it was built: ``inv`` (ops.cg.use_inverted_precond)
+    stores L^-1, ``hp`` (ops.cg.use_hp_residual) takes the residuals
+    through the Ozaki matmul and defers the f64 fallback factor to the
+    solve that needs it (no [m, m] f64 buffer on the common f32 path)."""
+    m = M.shape[0]
+    inv = cg_ops.use_inverted_precond(m)
+    hp = cg_ops.use_hp_residual(m)
+    L32, s, ok32 = cg_ops._equilibrated_factor(M, f32=True, inv=inv)
+    L32 = torch.where(ok32, L32, torch.eye(m, dtype=torch.float32, device=M.device))
+    probe = torch.ones((m, 1), dtype=M.dtype, device=M.device)
+    _, p_status, _ = cg_ops.refine_solve(M, L32, s, probe, max_iter=20,
+                                         pre_inverted=inv, hp_residual=hp)
     need64 = not _read(c, ok32) or p_status != cg_ops.STATUS_OK
-    if need64:
+    if need64 and not hp:
         Lf64, ok = _factor_m_f64(c, M)
     else:
         Lf64, ok = None, c.yes
-    return (M, L32, s, Lf64, need64), ok
+    return (M, L32, s, Lf64, need64, inv, hp), ok
 
 
 def factor_m(c: Cones, M):
@@ -489,12 +502,15 @@ def factor_m(c: Cones, M):
 def solve_m(c: Cones, Lm, rhs):
     if not c.cfg.mp:
         return chol_ops.chol_solve(Lm, rhs)
-    M, L32, s, Lf64, need64 = Lm
+    M, L32, s, Lf64, need64, inv, hp = Lm
     rhs2 = rhs[:, None] if rhs.ndim == 1 else rhs
     if need64:
+        if Lf64 is None:  # deferred f64 tier (hp sizes)
+            Lf64, _ = _factor_m_f64(c, M)
         X = chol_ops.chol_solve(Lf64, rhs2)
     else:
-        X, _, _ = cg_ops.refine_solve(M, L32, s, rhs2, max_iter=30)
+        X, _, _ = cg_ops.refine_solve(M, L32, s, rhs2, max_iter=30,
+                                      pre_inverted=inv, hp_residual=hp)
     return X[:, 0] if rhs.ndim == 1 else X
 
 
@@ -1375,6 +1391,7 @@ def _config_from_ipm(ipm) -> Config:
         mp=p.kkt_mp == "on",
         hp=bool(ipm.cones.kkt_hp),
         dhp=bool(ipm.cones.dual_hp),
+        cone_dd=bool(ipm.cones.cone_dd),
     )
 
 

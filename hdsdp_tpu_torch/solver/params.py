@@ -88,8 +88,10 @@ class Params:
     op_precond_cap: int = 32768
     op_precond_chunk: int = 2048
     op_precond_refresh_iters: int = 80
-    # double-single Cholesky of M ("dd") and of the cone blocks: not
-    # ported; "dd" raises, "auto" and "xla"/"off" run the f64 factor
+    # double-single Cholesky (ops.ddchol, kernel K8 on the card) of M
+    # (kkt_fp) and of single cone blocks with n >= 512 (cone_fp): "dd"
+    # forces it; "auto" engages it on a TPU only (at the thresholds), so
+    # never here; "xla"/"off" keep the f64 factor
     kkt_fp: str = "auto"
     kkt_dd_threshold: int = 768
     cone_fp: str = "auto"

@@ -8,6 +8,8 @@ scripts: where the reference objectives and iteration counts in
     JAX_PLATFORMS=cpu python tests/jax_reference.py gpp500 --fused auto --seed 1
     JAX_PLATFORMS=cpu python tests/jax_reference.py gpp500 --batch 4
     JAX_PLATFORMS=cpu python tests/jax_reference.py maxG51 --mesh 4
+    JAX_PLATFORMS=cpu python tests/jax_reference.py maxG51 --fused auto --kw '{"cone_fp": "dd"}'
+    JAX_PLATFORMS=cpu python tests/jax_reference.py maxG51 --kw '{"kkt_fp": "dd", "cone_fp": "dd"}'
 
 Solves the instance's generator call (``hdsdp_tpu_torch/utils/instances.py``)
 with ``hdsdp_tpu``'s ``HDSDPSolver(prob, fused=...)`` and the instance's
@@ -30,7 +32,9 @@ members its fleet finished and which it re-solved solo (the fleets of
 (``XLA_FLAGS=--xla_force_host_platform_device_count=N`` is set before jax
 is imported): the host loop with the row-sharded or slot-partitioned
 assembly and the distributed factor (``MESH_REFS`` in ``chip_smoke.py``).
-``--kw '{"kkt_mode": "free"}'`` adds solver overrides to the instance's;
+``--kw '{"kkt_mode": "free"}'`` adds solver overrides to the instance's
+(the double-single options of ``chip_smoke.py``'s ``[dd]`` phase,
+``DD_SOLVES``, with or without a mesh);
 ``--rows K`` adds the iteration log's rows up to iteration K, as
 (method, iteration, d_obj, mu, step) (``MESH_ROWS``; ``tests/mesh_trace.py``
 solves the same on the port and compares two such lines).

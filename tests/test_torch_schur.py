@@ -221,8 +221,13 @@ def test_chol_primitives():
     okt, Lt = tchol.psd_check(torch.as_tensor(bad))
     assert not bool(okt) and bool(torch.isnan(Lt[1]).all())
     assert bool(torch.isfinite(Lt[0]).all())
-    with pytest.raises(NotImplementedError, match="ddchol"):
-        tchol.chol_inverse(torch.eye(512, dtype=torch.float64)[None], use_dd=True)
+    # use_dd at a single block of n = 512: the double-single inverse from
+    # the f64 factor (ops.ddchol), bit for bit the JAX package's
+    L512 = np.linalg.cholesky(_spd(rng, 512))
+    u_dd = tchol.chol_inverse(torch.as_tensor(L512), use_dd=True)
+    assert np.array_equal(u_dd.numpy(), np.asarray(jchol.chol_inverse(jnp.asarray(L512),
+                                                                     use_dd=True)))
+    assert _rel(u_dd, tchol.chol_inverse(torch.as_tensor(L512))) < 1e-10
 
 
 @pytest.mark.parametrize("n,mode", [(40, "exact"), (200, "lanczos"), (200, "auto")])
