@@ -340,7 +340,10 @@ BATCH_KERNEL_FLEET = 4  # the gpp fleet's size: K1/K1s are held at its shapes
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
 PEAK_BYTES_S = 3.35e12    # HBM3
 PEAK_BF16_FLOPS = 989e12  # tensor cores, bf16 in, f32 accumulate
-PEAK_F32_FLOPS = 67e12    # CUDA cores
+PEAK_F32_FLOPS = 67e12    # CUDA cores, an FMA counted as two operations
+# the kernels below K1 issue no FMA (every step is an __f*_rn intrinsic,
+# one instruction, one operation): their peak is half the FMA rate
+PEAK_F32_OPS = PEAK_F32_FLOPS / 2
 
 
 def _smi_line() -> str:
@@ -423,7 +426,7 @@ def _slice_bound_ms(rows, k, kp, gmax):
     multiply, a trunc, a multiply and the 7-operation two_sum remainder."""
     q = gmax + 1
     t_bytes = (8 * rows * k + 2 * q * rows * kp + 4 * rows) / PEAK_BYTES_S
-    t_ops = (10.0 * q + 4.0) * rows * kp / PEAK_F32_FLOPS
+    t_ops = (10.0 * q + 4.0) * rows * kp / PEAK_F32_OPS
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -805,15 +808,36 @@ def _bits_same(x, y) -> bool:
             and torch.equal(x.masked_fill(nx, 0).view(iv), y.masked_fill(ny, 0).view(iv)))
 
 
+def _panel_ops(b):
+    """The f32 operations that L and W of one B x B panel need, counted
+    from dd.py's code (DD product 24, DD sum or difference 11, a negation
+    free, sqrt 35 and inv 41 for the pivot); step j, r = B - 1 - j rows
+    below the pivot:
+      pivot:    76
+      column:   24 (r + 1)           a DD product per entry of L[j:, j]
+      trailing: 35 r (r + 1) / 2     a DD product and a DD difference per
+                                     entry of the trailing block's lower
+                                     triangle, all that later steps read
+      W row j:  sum over k < j of 24 (j - k) + 11 (j - k - 1) + 24: the
+                products L[j, i] W[i, k] for k <= i < j (W is lower
+                triangular), their DD sum and the product with the
+                pivot's inverse; W[j, j] is that inverse.
+    About 35 B^3 / 3.  K8 runs about 70 B^3: it updates the whole panel
+    and sums every row, as the plain version does."""
+    ops = 0
+    for j in range(b):
+        r = b - 1 - j
+        ops += 76 + 24 * (r + 1) + 35 * r * (r + 1) // 2
+        ops += sum(24 * d + 11 * (d - 1) + 24 for d in range(1, j + 1))
+    return ops
+
+
 def _panel_bound_ms(b, n_inst=1):
     """(bound ms, which peak) of K8 on n_inst panels of B x B: the two
     input words read once and the four output words written once, against
-    the f32 operations of the sweep, counted from its code: per step 35 B^2
-    for the rank-1 update (a DD product and a DD sum), 35 B^2 for W's row
-    (a DD product per entry, one tree node per entry), 48 B + 76 for the
-    column, the pivot's sqrt and inverse and the row's last two steps."""
+    the operations of :func:`_panel_ops` at the FMA-free f32 rate."""
     t_bytes = n_inst * 6 * 4 * b * b / PEAK_BYTES_S
-    t_ops = n_inst * b * (70.0 * b * b + 48.0 * b + 76.0) / PEAK_F32_FLOPS
+    t_ops = n_inst * _panel_ops(b) / PEAK_F32_OPS
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -932,6 +956,10 @@ def _dd_kernel_phase(torch, ddchol, dev):
         "factor_eager": _time_ms(lambda: ddchol.factor(S), reps=5, warmup=1),
         "factor_cholesky_f64": _device_ms(lambda: torch.linalg.cholesky_ex(S), reps=10),
     }
+    print(f"[kernel] K8's bound: {_panel_ops(b)} f32 operations that L and W need "
+          f"({_panel_ops(b) / b ** 3:.2f} B^3; the trailing lower triangle and W's lower "
+          f"triangle) at {PEAK_F32_OPS / 1e12} T/s (no FMA: half of {PEAK_F32_FLOPS / 1e12} "
+          f"TFLOP/s), against {6 * 4 * b * b} bytes at {PEAK_BYTES_S / 1e12} TB/s", flush=True)
     print(f"[kernel] K8 [{b},{b}] device ms (CUDA events around a graph of 10 calls): "
           f"{t['k8']:.4f} (bound {t['k8_bound'][0]:.5f} by {t['k8_bound'][1]}; plain, eager: "
           f"{t['k8_plain']:.2f}; yardstick f64 torch.linalg.cholesky of the same panel "

@@ -50,9 +50,12 @@
 // the whole panel, about 70 B^3 = 1.2e9 f32 operations in all (~36 per
 // entry for the rank-1 update, ~34 for the W row), all on the one SM that
 // runs the block: ~128 f32 operations a clock, so ~5 ms a panel at the
-// card's clock, against ~0.02 ms for the same operations spread over 132
-// SMs.  A simple design first: the serial chain and the one SM are what a
-// later redesign would attack.
+// card's clock.  L and W themselves need only about 35 B^3 / 3 = 2.0e8
+// of them (the trailing block's lower triangle, W's lower triangle): at
+// the card's FMA-free f32 rate over 132 SMs (half its 67 TFLOP/s, which
+// counts an FMA as two) that is ~0.006 ms.  A simple design first: the
+// serial chain, the one SM and the masked work are what a later redesign
+// would attack.
 //
 // Interface (plain C, loaded with ctypes): ph, pl are [n_inst, B, B]
 // contiguous f32 and are overwritten (the panel's trailing state); lh, ll,

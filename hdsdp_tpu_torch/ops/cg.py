@@ -186,7 +186,7 @@ def chol_apply(L: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
 
 def refine_solve(M, L, s, B, max_iter: int = 40, abs_tol: float = 1e-10,
                  rel_tol: float = 1e-10, pre_inverted: bool = False,
-                 hp_residual: bool = False):
+                 hp_residual: bool = False, apply=None):
     """Mixed-precision iterative refinement: f32 (or f64) factor of the
     equilibrated M, f64 residuals.  Solves M X = B [m, k]:
 
@@ -203,6 +203,8 @@ def refine_solve(M, L, s, B, max_iter: int = 40, abs_tol: float = 1e-10,
     ``pre_inverted``: L is L^-1 and the apply is two matrix products.
     ``hp_residual``: M X runs through the Ozaki matmul (M sliced once),
     and eps in the acceptance level is its 2^-45.
+    ``apply``: a preconditioner R -> ~M^-1 R that takes the place of
+    (L, s), which are then unused (AdaptiveCG's DD tier).
 
     Returns (X, status, sweeps).  One host read of three norms per
     sweep."""
@@ -219,6 +221,8 @@ def refine_solve(M, L, s, B, max_iter: int = 40, abs_tol: float = 1e-10,
             return M @ X
 
     def apply_p(R):
+        if apply is not None:
+            return apply(R)
         U = (s[:, None] * R).to(L.dtype)
         T = L.T @ (L @ U) if pre_inverted else chol_apply(L, U)
         return s[:, None] * T.to(torch.float64)
@@ -323,70 +327,36 @@ class AdaptiveCG:
         self.history.append((kind, "ok", time.time() - t0))
         return True
 
-    def _refine_dd(self, M, B):
-        """Refinement sweeps against the pre-inverted DD factor: the
-        applies A^-1 R = G^T (G R) are Ozaki products, the residual is
-        f64 (or Ozaki under :func:`use_hp_residual`), and the acceptance
-        level is refine_solve's backward-stable floor.  A non-finite
-        residual ends the sweeps at once, as does one that keeps more than
-        0.9 of the last."""
+    def _dd_apply(self, m):
+        """The DD tier's preconditioner: A^-1 R = G^T (G R) with G = L^-1
+        the pre-inverted DD factor, both products through the Ozaki
+        matmul, R padded to G's size and the result cut back."""
         from hdsdp_tpu_torch.ops import dd, hpmm
 
         gh, gl = self.chol_fac[0]
-        m = M.shape[0]
         npad = gh.shape[0]
 
-        def papply(R):
+        def apply(R):
             rh, rl = dd.from_f64(F.pad(R, (0, 0, 0, npad - m)))
             yh, yl = hpmm.hpmm_dd(gh, gl, rh, rl)
             xh, xl = hpmm.hpmm_dd(gh.T, gl.T, yh, yl)
             return dd.to_f64(xh, xl)[:m]
 
-        if use_hp_residual(m):
-            m_sl, e_m = hpmm.hpmm_slice_a(M)
-
-            def mdot(X):
-                return hpmm.hpmm_presliced(m_sl, e_m, X)
-
-            eps_res = 2.0 ** -45
-        else:
-            def mdot(X):
-                return M @ X
-
-            eps_res = _EPS64
-
-        def colnorm(A):
-            return torch.max(torch.linalg.vector_norm(A, dim=0))
-
-        bnorm, mnorm = torch.stack([colnorm(B), torch.max(torch.sum(torch.abs(M), dim=1))]).tolist()
-        X = papply(B)
-        it = 0
-        rn_prev = None
-        for it in range(1, self.max_iter + 1):
-            R = B - mdot(X)
-            rn, xn = torch.stack([colnorm(R), colnorm(X)]).tolist()
-            if rn != rn:
-                return X, STATUS_NUMERICAL, it
-            tol = max(self.abs_tol, self.rel_tol * bnorm, 16.0 * eps_res * (bnorm + mnorm * xn))
-            if rn < tol:
-                return X, STATUS_OK, it
-            if rn_prev is not None and rn > 0.9 * rn_prev:
-                return X, STATUS_MAXITER, it
-            rn_prev = rn
-            X = X + papply(R)
-        return X, STATUS_MAXITER, it
+        return apply
 
     def _refine(self, M, rhs_mat):
         t0 = time.time()
         L, s, inv = self.chol_fac
-        if inv == "dd":
-            X, status, iters = self._refine_dd(M, rhs_mat)
-        else:
-            X, status, iters = refine_solve(
-                M, L, s, rhs_mat, max_iter=self.max_iter,
-                abs_tol=self.abs_tol, rel_tol=self.rel_tol,
-                pre_inverted=inv, hp_residual=use_hp_residual(M.shape[0]),
-            )
+        dd_tier = inv == "dd"
+        X, status, iters = refine_solve(
+            M, L, s, rhs_mat, max_iter=self.max_iter - dd_tier,
+            abs_tol=self.abs_tol, rel_tol=self.rel_tol,
+            pre_inverted=inv, hp_residual=use_hp_residual(M.shape[0]),
+            apply=self._dd_apply(M.shape[0]) if dd_tier else None,
+        )
+        # the JAX package's DD tier counts residuals (one more than the
+        # sweeps) and stops at max_iter of them
+        iters += dd_tier
         self.last_iters = int(iters)
         self.last_status = int(status)
         self.history.append((

@@ -114,9 +114,10 @@ def panel_factor(ph: torch.Tensor, pl: torch.Tensor):
     lib, _ = cuda_build.load("dd_panel")
     fleet = ph.ndim == 3
     n_inst = ph.shape[0] if fleet else 1
-    # the kernel updates the panel in place: it gets its own copy
-    work_h = ph.contiguous().clone()
-    work_l = pl.contiguous().clone()
+    # the kernel updates the panel in place: it gets its own contiguous
+    # copy, made in one pass from a strided slice
+    work_h = ph.clone(memory_format=torch.contiguous_format)
+    work_l = pl.clone(memory_format=torch.contiguous_format)
     outs = [torch.empty_like(work_h) for _ in range(4)]
     with torch.cuda.device(ph.device):
         err = lib.dd_panel_launch(

@@ -236,10 +236,8 @@ def _dd_solve_checked(M: torch.Tensor, rhs: torch.Tensor):
     acg = cg_ops.AdaptiveCG()
     if not acg._factor(M, f32=False):
         return None
-    X, status, _ = acg._refine_dd(M, rhs[:, None])
-    if status != cg_ops.STATUS_OK:
-        return None
-    return X[:, 0]
+    X, ok = acg._refine(M, rhs[:, None])
+    return X[:, 0] if ok else None
 
 
 def _restarted_pcg(solve, matvec, rhs, runs: int = 8):
