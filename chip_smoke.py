@@ -21,14 +21,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              host's launch cost is not what is measured), and compute each
              kernel's bound from the shapes.  K8, the double-single panel
              factor of ops/ddchol.py (csrc/dd_panel.cu), is held bit for bit
-             (signed zeros included) against its plain version at B = 256 on
-             a well-conditioned, an ill-conditioned (cond 1e12), an
-             indefinite (both fail ok alike) and a wild-scaled panel, and a
-             fleet of the four against its four single launches; the whole
-             ddchol.factor of maxG51's start S (1000 padded to 1024, 4
-             panels) on the card against the host, bit for bit; K8, its
-             plain version and f64 cholesky of the panel timed, and the whole
-             factor against f64 cholesky of S;
+             (signed zeros included) against its plain version at B = 32,
+             64, 128 and 256, each on a well-conditioned, an ill-conditioned
+             (cond 1e12), an indefinite (both fail ok alike) and a
+             wild-scaled panel, and a fleet of the four against its four
+             single launches; the whole ddchol.factor of maxG51's start S
+             (1000 padded to 1024, 4 panels) on the card against the host,
+             bit for bit; K8 at every B, its plain version and f64 cholesky
+             of the panel timed, and the whole factor against f64 cholesky
+             of S;
   4. slice   solve the SDPLIB gpp500-class instance (gpp_sdpa(n=500,
              seed=0), m = 501, one 500 x 500 block) with kkt_hp="on" and
              fused=False (the host loop) through solve_sdpa_file, count the
@@ -859,34 +860,34 @@ def _maxg51_start_s(torch, dev):
 
 def _dd_kernel_phase(torch, ddchol, dev):
     """K8 (the DD panel factor) against its plain version on the card, bit
-    for bit, at B = 256 on a well-conditioned SPD panel, an ill-conditioned
-    one (cond 1e12), an indefinite one (both must fail ok alike) and one of
-    wild scales (entries 1e-28..1e28, inside the f32 range ops/dd.py
-    states), and a fleet of those four against its four single launches;
-    then the whole ddchol.factor of maxG51's 1024-padded S, card against
-    host.  Times K8, its plain version and f64 cholesky of the same panel
-    (CUDA events), and the whole factor against f64 cholesky.  Returns
-    (worst max |diff|, times)."""
+    for bit, at B = 32, 64, 128 and 256, each on a well-conditioned SPD
+    panel, an ill-conditioned one (cond 1e12), an indefinite one (both must
+    fail ok alike) and one of wild scales (entries 1e-28..1e28, inside the
+    f32 range ops/dd.py states), and at each B a fleet of those four
+    against its four single launches; then the whole ddchol.factor of
+    maxG51's 1024-padded S, card against host.  Times K8 at every B, its
+    plain version and f64 cholesky of the same panel (CUDA events), and the
+    whole factor against f64 cholesky.  Returns (worst max |diff|, times)."""
     import numpy as np
 
     from hdsdp_tpu_torch.ops import dd
 
     rng = np.random.default_rng(8)
-    b = 256
+    worst = 0.0
 
-    def spd(cond):
+    def spd(b, cond):
         q, _ = np.linalg.qr(rng.standard_normal((b, b)))
         a = (q * np.logspace(0, -np.log10(cond), b)) @ q.T
         return 0.5 * (a + a.T)
 
-    d = np.logspace(-14, 14, b)
-    mats = {
-        "well-conditioned SPD": spd(1e2) + np.eye(b),
-        "ill-conditioned SPD (cond 1e12)": spd(1e12),
-        "indefinite": spd(1e2) - 0.5 * np.eye(b),
-        "wild scales (1e-28..1e28)": d[:, None] * (spd(1e2) + np.eye(b)) * d[None, :],
-    }
-    worst = 0.0
+    def kinds(b):
+        d = np.logspace(-14, 14, b)
+        return {
+            "well-conditioned SPD": spd(b, 1e2) + np.eye(b),
+            "ill-conditioned SPD (cond 1e12)": spd(b, 1e12),
+            "indefinite": spd(b, 1e2) - 0.5 * np.eye(b),
+            "wild scales (1e-28..1e28)": d[:, None] * (spd(b, 1e2) + np.eye(b)) * d[None, :],
+        }
 
     def check(name, a64):
         nonlocal worst
@@ -910,21 +911,24 @@ def _dd_kernel_phase(torch, ddchol, dev):
         _require(torch.equal(ok_k, ok_p), f"K8 and its plain version disagree on ok at {name}")
         return got, ok_k
 
-    for name, a in mats.items():
-        _, ok_k = check(name, a)
-        _require(bool(ok_k) == (name != "indefinite"),
-                 f"ok is {bool(ok_k)} on the {name} panel")
-        print(f"[kernel] K8 dd_panel [{b},{b}] {name}: == panel_factor_ref bit for bit "
-              f"(L, W, signed zeros, NaN where NaN); ok {bool(ok_k)} in both", flush=True)
-    stack = np.stack(list(mats.values()))
-    fleet_out, ok_f = check("a fleet of 4", stack)
-    for i, a in enumerate(mats.values()):
-        single = ddchol.panel_factor(*dd.from_f64(torch.as_tensor(a, device=dev)))
-        _require(all(_bits_same(f[i], s) for f, s in zip(fleet_out, single)),
-                 f"K8's fleet differs from its single launch at instance {i}")
-    _require(ok_f.tolist() == [True, True, False, True], f"fleet ok {ok_f.tolist()}")
-    print(f"[kernel] K8 fleet of 4 [4,{b},{b}]: one launch, == the 4 single launches and "
-          f"the plain fleet bit for bit; ok {ok_f.tolist()}", flush=True)
+    panels = {}
+    for b in ddchol.KERNEL_BLOCKS:
+        mats = panels[b] = kinds(b)
+        for name, a in mats.items():
+            _, ok_k = check(f"B = {b}, {name}", a)
+            _require(bool(ok_k) == (name != "indefinite"),
+                     f"ok is {bool(ok_k)} on the {name} panel at B = {b}")
+        stack = np.stack(list(mats.values()))
+        fleet_out, ok_f = check(f"B = {b}, a fleet of 4", stack)
+        for i, a in enumerate(mats.values()):
+            single = ddchol.panel_factor(*dd.from_f64(torch.as_tensor(a, device=dev)))
+            _require(all(_bits_same(f[i], s) for f, s in zip(fleet_out, single)),
+                     f"K8's fleet differs from its single launch at B = {b}, instance {i}")
+        _require(ok_f.tolist() == [True, True, False, True], f"fleet ok {ok_f.tolist()} at B = {b}")
+        print(f"[kernel] K8 dd_panel [{b},{b}]: the four panels ({', '.join(mats)}) == "
+              f"panel_factor_ref bit for bit (L, W, signed zeros, NaN where NaN), ok alike; a "
+              f"fleet of the four [4,{b},{b}] in one launch == the 4 single launches, ok "
+              f"{ok_f.tolist()}", flush=True)
 
     # -- the whole DD factor of maxG51's S: card == host, bit for bit ---------
     S = _maxg51_start_s(torch, dev)
@@ -938,15 +942,25 @@ def _dd_kernel_phase(torch, ddchol, dev):
     print(f"[kernel] ddchol.factor of maxG51's S (1000 -> 1024, 4 panels): card == host "
           f"plain versions bit for bit; |L L^T - S| / |S| = {rel:.3e}", flush=True)
 
-    a = mats["well-conditioned SPD"]
-    ph, pl = dd.from_f64(torch.as_tensor(a, device=dev))
-    a64 = torch.as_tensor(a, device=dev)
+    # K8 and f64 cholesky of the well-conditioned panel at every B; the
+    # rest at B = 256, the main path's panel
+    by_b = {}
+    for b in ddchol.KERNEL_BLOCKS:
+        a = panels[b]["well-conditioned SPD"]
+        ph, pl = dd.from_f64(torch.as_tensor(a, device=dev))
+        a64 = torch.as_tensor(a, device=dev)
+        by_b[b] = {"ms": _device_ms(lambda: ddchol.panel_factor(ph, pl), reps=10),
+                   "bound_ms": _panel_bound_ms(b)[0],
+                   "cholesky_f64_ms": _device_ms(lambda: torch.linalg.cholesky_ex(a64), reps=10)}
+    b = ddchol.KERNEL_BLOCKS[-1]  # 256, the main path's panel
+    ph, pl = dd.from_f64(torch.as_tensor(panels[b]["well-conditioned SPD"], device=dev))
+    stack = np.stack(list(panels[b].values()))
     fh, fl = dd.from_f64(torch.as_tensor(stack, device=dev))
     singles = [dd.from_f64(torch.as_tensor(x, device=dev)) for x in stack]
     t = {
-        "k8": _device_ms(lambda: ddchol.panel_factor(ph, pl), reps=10),
+        "k8": by_b[b]["ms"],
         "k8_plain": _time_ms(lambda: ddchol.panel_factor_ref(ph, pl), reps=2, warmup=1),
-        "cholesky_f64": _device_ms(lambda: torch.linalg.cholesky_ex(a64), reps=10),
+        "cholesky_f64": by_b[b]["cholesky_f64_ms"],
         "k8_bound": _panel_bound_ms(b),
         "k8_fleet": _device_ms(lambda: ddchol.panel_factor(fh, fl), reps=5),
         "k8_fleet_singles": _device_ms(lambda: [ddchol.panel_factor(*x) for x in singles],
@@ -955,16 +969,22 @@ def _dd_kernel_phase(torch, ddchol, dev):
         "factor": _device_ms(lambda: ddchol.factor(S), reps=5),
         "factor_eager": _time_ms(lambda: ddchol.factor(S), reps=5, warmup=1),
         "factor_cholesky_f64": _device_ms(lambda: torch.linalg.cholesky_ex(S), reps=10),
+        "k8_by_block": by_b,
     }
+    smi = _smi_line()
     print(f"[kernel] K8's bound: {_panel_ops(b)} f32 operations that L and W need "
           f"({_panel_ops(b) / b ** 3:.2f} B^3; the trailing lower triangle and W's lower "
           f"triangle) at {PEAK_F32_OPS / 1e12} T/s (no FMA: half of {PEAK_F32_FLOPS / 1e12} "
           f"TFLOP/s), against {6 * 4 * b * b} bytes at {PEAK_BYTES_S / 1e12} TB/s", flush=True)
-    print(f"[kernel] K8 [{b},{b}] device ms (CUDA events around a graph of 10 calls): "
+    print(f"[kernel] K8 [{b},{b}] device ms (CUDA events around a graph of 10 calls) on {smi}: "
           f"{t['k8']:.4f} (bound {t['k8_bound'][0]:.5f} by {t['k8_bound'][1]}; plain, eager: "
-          f"{t['k8_plain']:.2f}; yardstick f64 torch.linalg.cholesky of the same panel "
-          f"{t['cholesky_f64']:.4f}); fleet of 4 {t['k8_fleet']:.4f} (4 single launches "
-          f"{t['k8_fleet_singles']:.4f}, bound {t['k8_fleet_bound'][0]:.5f})", flush=True)
+          f"{t['k8_plain']:.2f}; "
+          f"yardstick f64 torch.linalg.cholesky of the same panel {t['cholesky_f64']:.4f}); "
+          f"fleet of 4 {t['k8_fleet']:.4f} (4 single launches {t['k8_fleet_singles']:.4f}, "
+          f"bound {t['k8_fleet_bound'][0]:.5f})", flush=True)
+    print("[kernel] K8 by B, device ms (bound, f64 cholesky): " + "; ".join(
+        f"{bb}: {v['ms']:.4f} ({v['bound_ms']:.5f}, {v['cholesky_f64_ms']:.4f})"
+        for bb, v in by_b.items()), flush=True)
     print(f"[kernel] ddchol.factor of maxG51's S: {t['factor']:.3f} ms on the device, "
           f"{t['factor_eager']:.3f} ms eager; f64 torch.linalg.cholesky of the same S "
           f"{t['factor_cholesky_f64']:.3f} ms ({t['factor'] / t['factor_cholesky_f64']:.1f}x)",
@@ -1074,7 +1094,8 @@ def _dd_phase(torch, solve_sdpa_file, instances, hpmm, default_wall, tmp):
         "overrides": {"cone_fp": "dd"}, "status": [r.status for r in rs],
         "batch_solo": [r.stats["batch_solo"] for r in rs],
         "iterations": [r.n_iters for r in rs], "solo_iterations": [r.n_iters for r in solos],
-        "rel_d_obj_to_solo": rel, "dimacs_max": dmax, "wall_s": wall,
+        "d_obj": [r.d_obj for r in rs], "rel_d_obj_to_solo": rel, "dimacs_max": dmax,
+        "wall_s": wall,
         "solo_walls_s": solo_walls, "fleet_kernel_launches_k1_k1s_k8": acct["kernel_launches"],
         "launches_k8_k1_k1s": launches["d"],
     }), flush=True)
@@ -2180,6 +2201,7 @@ def _summary(torch, times, fleet_times, max_err, max_err_slice, wall, slice_laun
         "bound_by": dd_times["k8_bound"][1],
         "library_ms": dd_times["cholesky_f64"],
         "library_call": "torch.linalg.cholesky_ex of the same panel in f64, a yardstick",
+        "ms_by_block": dd_times["k8_by_block"],
         "fleet": 4,
         "fleet_ms": dd_times["k8_fleet"],
         "fleet_singles_ms": dd_times["k8_fleet_singles"],

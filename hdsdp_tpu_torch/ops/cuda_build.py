@@ -40,7 +40,7 @@ SIGNATURES = {
     # x (or h), l, out, e | I, K, Kp, q, fleet size | strides of x and l,
     # each with its fleet stride first | stream
     "hpmm_slice": {"hpmm_slice_launch": [_PTR] * 4 + [_INT] * 5 + [_LL] * 6 + [_PTR]},
-    # ph, pl (overwritten), lh, ll, wh, wl | B, number of panels | stream
+    # ph, pl (read), lh, ll, wh, wl | B, number of panels | stream
     "dd_panel": {"dd_panel_launch": [_PTR] * 6 + [_INT] * 2 + [_PTR]},
 }
 

@@ -37,7 +37,7 @@ from hdsdp_tpu_torch.ops import dd, hpmm
 # path never count.
 PANEL_LAUNCHES = 0
 
-_KERNEL_BLOCKS = (32, 64, 128, 256)  # the panel sizes K8 is built for
+KERNEL_BLOCKS = (32, 64, 128, 256)  # the panel sizes K8 is built for
 
 
 class DDFactor(NamedTuple):
@@ -95,8 +95,9 @@ def panel_factor_ref(ph: torch.Tensor, pl: torch.Tensor):
 def panel_factor(ph: torch.Tensor, pl: torch.Tensor):
     """DD panel factor and inverse (see :func:`panel_factor_ref`): kernel
     K8 for CUDA tensors, the plain version for CPU tensors.  A fleet
-    [N, B, B] is one launch of N thread blocks.  On the card B must be 32,
-    64, 128 or 256; anything else raises."""
+    [N, B, B] is one launch of N thread-block clusters.  On the card B must
+    be 32, 64, 128 or 256; anything else, or a launch the card refuses,
+    raises."""
     global PANEL_LAUNCHES
     if not (ph.dtype == pl.dtype == torch.float32 and ph.shape == pl.shape
             and ph.ndim in (2, 3) and ph.shape[-1] == ph.shape[-2]
@@ -107,17 +108,15 @@ def panel_factor(ph: torch.Tensor, pl: torch.Tensor):
     if ph.device.type != "cuda":
         raise ValueError(f"panel_factor: unsupported device {ph.device}")
     b = ph.shape[-1]
-    if b not in _KERNEL_BLOCKS:
-        raise ValueError(f"the CUDA kernel takes panels of B in {_KERNEL_BLOCKS}, got {b}")
+    if b not in KERNEL_BLOCKS:
+        raise ValueError(f"the CUDA kernel takes panels of B in {KERNEL_BLOCKS}, got {b}")
     from hdsdp_tpu_torch.ops import cuda_build
 
     lib, _ = cuda_build.load("dd_panel")
     fleet = ph.ndim == 3
     n_inst = ph.shape[0] if fleet else 1
-    # the kernel updates the panel in place: it gets its own contiguous
-    # copy, made in one pass from a strided slice
-    work_h = ph.clone(memory_format=torch.contiguous_format)
-    work_l = pl.clone(memory_format=torch.contiguous_format)
+    # the kernel reads the panel's lower triangle and writes nothing there
+    work_h, work_l = ph.contiguous(), pl.contiguous()
     outs = [torch.empty_like(work_h) for _ in range(4)]
     with torch.cuda.device(ph.device):
         err = lib.dd_panel_launch(

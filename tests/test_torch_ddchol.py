@@ -234,18 +234,128 @@ def test_kkt_fp_dd_host_loop_matches_jax(monkeypatch):
     assert kinds and set(kinds) == {"ddchol"}
 
 
+def _panel_kinds(rng, b):
+    """The four panel kinds of chip_smoke.py's kernel phase."""
+    d = np.logspace(-14, 14, b)
+    return {
+        "well-conditioned": _spd(rng, b, 1e2) + np.eye(b),
+        "cond 1e12": _spd(rng, b, 1e12),
+        "indefinite": _spd(rng, b, 1e2) - 0.5 * np.eye(b),
+        "wild scales": d[:, None] * (_spd(rng, b, 1e2) + np.eye(b)) * d[None, :],
+    }
+
+
+def _tree_node(a, b):
+    """One node of dd_sum's tree, a the lower-index operand."""
+    s, e = tdd.two_sum(a[0], b[0])
+    return tdd.quick_two_sum(s, e + a[1] + b[1])
+
+
+def _k8_mirror(ph, pl):
+    """K8's order of operations (csrc/dd_panel.cu), in plain torch, for one
+    [B, B] panel: phase L updates only the trailing block's strictly lower
+    triangle and the diagonal, one step at a time (the kernel's strip is
+    one column; its copies of the diagonal and subdiagonal take the same
+    operations); phase W builds W column by column, W[j, k] from the final
+    row j of L and the leaves i in [k, j), every other leaf the constant
+    (+0, +0), with the kernel's tree: leaf i in lane i % 32, slot i // 32,
+    the slots summed in-lane first (a node whose two subtrees hold no leaf
+    in [k, j) skipped, as the kernel skips it), then the lanes with strides
+    16 .. 1.  Vectorised over the columns k."""
+    b = ph.shape[-1]
+    ns = b // 32
+    z = torch.zeros((), dtype=torch.float32)
+    rid = torch.arange(b)
+    strict = rid[:, None] > rid[None, :]
+    sh, sl = torch.where(strict, ph, z), torch.where(strict, pl, z)  # P, then L in place
+    dh, dl = ph.diagonal().clone(), pl.diagonal().clone()  # P[i, i], then L[i, i]
+    ish, isl = torch.zeros(b), torch.zeros(b)
+    for j in range(b):
+        ih, il = tdd.inv(*tdd.sqrt(dh[j:j + 1], dl[j:j + 1]))
+        ish[j], isl[j] = ih[0], il[0]
+        xh = torch.cat([dh[j:j + 1], sh[j + 1:, j]])
+        xl = torch.cat([dl[j:j + 1], sl[j + 1:, j]])
+        ch, cl = tdd.mul(xh, xl, ih, il)  # rows j ..
+        sh[j + 1:, j], sl[j + 1:, j] = ch[1:], cl[1:]
+        dh[j], dl[j] = ch[0], cl[0]
+        th, tl = ch[1:], cl[1:]  # rows j + 1 ..
+        oh, ol = tdd.mul(th[:, None], tl[:, None], th[None, :], tl[None, :])
+        uh, ul = tdd.sub(sh[j + 1:, j + 1:], sl[j + 1:, j + 1:], oh, ol)
+        low = strict[j + 1:, j + 1:]
+        sh[j + 1:, j + 1:] = torch.where(low, uh, sh[j + 1:, j + 1:])
+        sl[j + 1:, j + 1:] = torch.where(low, ul, sl[j + 1:, j + 1:])
+        gh, gl = tdd.sub(dh[j + 1:], dl[j + 1:], *tdd.mul(th, tl, th, tl))
+        dh[j + 1:], dl[j + 1:] = gh, gl
+    lh = sh + torch.diag(dh)
+    ll = sl + torch.diag(dl)
+
+    wh, wl = torch.zeros(b, b), torch.zeros(b, b)
+    k = rid[None, :]
+    for j in range(b):
+        # leaves [i, k] = L[j, i] W[i, k] for k <= i < j, else (+0, +0)
+        here = (rid[:, None] >= k) & (rid[:, None] < j)
+        qh, ql = tdd.mul(lh[j][:, None], ll[j][:, None], wh, wl)
+        vh = torch.where(here, qh, z).reshape(ns, 32, b)
+        vl = torch.where(here, ql, z).reshape(ns, 32, b)
+        # slot m holds a leaf of column k (the same for every lane)
+        m0 = 32 * torch.arange(ns)[:, None]
+        pres = torch.maximum(k, m0) < torch.minimum(torch.tensor(j), m0 + 32)  # [ns, b]
+        h = ns // 2
+        while h >= 1:
+            take = pres[:h] | pres[h:2 * h]
+            nh, nl = _tree_node((vh[:h], vl[:h]), (vh[h:2 * h], vl[h:2 * h]))
+            vh = torch.where(take[:, None, :], nh, vh[:h])
+            vl = torch.where(take[:, None, :], nl, vl[:h])
+            pres = take
+            h //= 2
+        ah, al = vh[0], vl[0]  # [32 lanes, b]
+        s = 16
+        while s >= 1:
+            ah, al = _tree_node((ah[:s], al[:s]), (ah[s:2 * s], al[s:2 * s]))
+            s //= 2
+        eh = torch.where(rid == j, 1.0, 0.0)
+        xh, xl = tdd.mul(*tdd.sub(eh, torch.zeros(b), ah[0], al[0]), ish[j], isl[j])
+        uh, ul = tdd.mul(*tdd.sub(z, z, z, z), ish[j], isl[j])  # W[j, k], k > j
+        wh[j] = torch.where(rid <= j, xh, uh)
+        wl[j] = torch.where(rid <= j, xl, ul)
+    return lh, ll, wh, wl
+
+
+@pytest.mark.parametrize("kind", ["well-conditioned", "cond 1e12", "indefinite", "wild scales"])
+@pytest.mark.parametrize("b", [32, 64, 128, 256])
+def test_k8_schedule_mirror_is_bitwise(b, kind):
+    """K8's reordering (only the lower trailing triangle updated; W after
+    L, column by column, the absent leaves as (+0, +0) constants and the
+    subtrees without a leaf skipped) gives panel_factor_ref's L and W bit
+    for bit, signed zeros and NaN positions included, at every B the kernel
+    is built for (1 to 8 leaf slots a lane)."""
+    rng = np.random.default_rng(100 + b)
+    a = _panel_kinds(rng, b)[kind]
+    ph, pl = (torch.as_tensor(x) for x in _dd(a))
+    got = _k8_mirror(ph, pl)
+    want = tdc.panel_factor_ref(ph, pl)
+    assert all(_bits(g, w) for g, w in zip(got, want))
+    assert bool(torch.isnan(want[2]).any()) == (kind == "indefinite")
+
+
 @pytest.mark.cuda
 def test_k8_matches_its_plain_version_on_the_card():
     """K8 (csrc/dd_panel.cu) against panel_factor_ref on the card, bit for
-    bit, on one panel and a fleet of two (one indefinite), one launch each."""
+    bit, at B = 32, 64, 128 and 256 on the four panel kinds, and a fleet of
+    the four at each B (one indefinite), one launch each; a B that K8 is not
+    built for raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(21)
-    mats = np.stack([_spd(rng, 256, 1e6), _spd(rng, 256, 1e2) - 0.5 * np.eye(256)])
-    ph, pl = (torch.as_tensor(x, device="cuda") for x in _dd(mats))
-    for h, l in ((ph[0], pl[0]), (ph, pl)):
-        before = tdc.PANEL_LAUNCHES
-        got = tdc.panel_factor(h, l)
-        assert tdc.PANEL_LAUNCHES == before + 1
-        want = tdc.panel_factor_ref(h, l)
-        assert all(_bits(g.cpu(), w.cpu()) for g, w in zip(got, want))
+    for b in tdc.KERNEL_BLOCKS:
+        mats = np.stack(list(_panel_kinds(rng, b).values()))
+        ph, pl = (torch.as_tensor(x, device="cuda") for x in _dd(mats))
+        for h, l in [(ph[i], pl[i]) for i in range(len(mats))] + [(ph, pl)]:
+            before = tdc.PANEL_LAUNCHES
+            got = tdc.panel_factor(h, l)
+            assert tdc.PANEL_LAUNCHES == before + 1
+            want = tdc.panel_factor_ref(h, l)
+            assert all(_bits(g.cpu(), w.cpu()) for g, w in zip(got, want)), b
+    with pytest.raises(ValueError):
+        tdc.panel_factor(ph[0, :48, :48], pl[0, :48, :48])
+
