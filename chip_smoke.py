@@ -97,7 +97,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              iterations beside the solo ones, the fleet's wall beside the sum
              of the solo walls, device kernels and host reads per fleet
              iteration beside one solo's, peak memory.  A fleet of mixed
-             shapes must raise.  (The kernel phase also holds the fleet forms
+             shapes must raise.  A fourth fleet, 4 x maxcut_sdpa(n=1000)
+             with kkt_mp="on" (maxG51x4mp), takes the f64 ladder of its
+             Schur factor per member; every member is also held to the JAX
+             package's fleet (BATCH_MP_REFS: status, d_obj 1e-7), and its
+             count of f64 factors is printed.  (The kernel phase also holds the fleet forms
              of K1 and K1s, at the gpp fleet's shapes, bitwise against their N
              single launches and their plain versions, and times them.)
 
@@ -113,10 +117,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              with it) and maxG51 with kkt_mode="free" (the sharded operator
              matvec), each held to the JAX package's own
              mesh run of one device (MESH_REFS: status, d_obj 1e-7, DIMACS max
-             <= max(1e-6, 10x the reference's)); the group is destroyed after.
+             <= max(1e-6, 10x the reference's)); then maxG51 with
+             cone_fp="dd" (every cone factor on the rank through ddchol: K8
+             and K1/K1s launch), with kkt_fp="dd" (inert on a mesh, as in the
+             JAX package: d_obj, iterations and y bit for bit the plain
+             maxG51 line's) and with dtype="float32" (d_obj within
+             F32_D_OBJ_REL, its peak memory beside the plain line's); the
+             group is destroyed after.
  11. mesh4   four ranks on the one card over gloo (parallel.mesh.spawn, every
              rank on cuda:0): maxG51, control11, gpp500 (kkt_hp="on": K1/K1s at
-             the row-shard shapes), the two gpp500 witnesses and
+             the row-shard shapes), the two gpp500 witnesses, maxG51 with
+             cone_fp="dd" (K8 must launch on every rank) and
              parallel.dryrun; every rank must end on the same y and d_obj bit
              for bit, and each solve is held to the JAX
              package's mesh run of four devices (status, d_obj 1e-7).  Both mesh
@@ -143,6 +154,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              pre-inverted and with the Ozaki residual at m = 8192,
              dimacs._dd_solve_checked at m = 4096 (and its fallback on an
              indefinite M), dimacs._uwu through hpmm at n = 8192.
+ 13. f32     dtype="float32" on the host loop (fused=False) through
+             HDSDPSolver: maxG51 (diag bucket), control11 (flat bucket,
+             three blocks) and theta6 (support bucket, AdaptiveCG), each
+             held to the JAX package's float32 host loop (F32_REFS: status,
+             d_obj within F32_D_OBJ_REL, DIMACS within 10x F32_DIMACS_JAX),
+             the port's check on the host at the card's end state held to
+             the same status and bound, with its iterations and its peak
+             device memory and wall beside the same instance's float64
+             host-loop solve through solve_sdpa_file; the fused driver must
+             refuse float32.  (maxG51 on the mesh in float32 is a line of
+             phase 10.)
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}.
@@ -294,6 +316,28 @@ MESH_REFS = {
 # --rows 8 --kw '{"ratio_test": "exact"[, "kkt_hp": "off"]}'` on an 8-core
 # x86 CPU; `tests/mesh_trace.py` solves the same on the port and compares
 # whole logs.
+# maxG51 on a mesh with cone_fp="dd" (the DD cone factor on every
+# rank) and with dtype="float32", `tests/jax_reference.py maxG51 --mesh N
+# --kw '{"cone_fp": "dd"}'` (N = 1: 9 min; N = 4: 41 min) and
+# `--mesh 1 --kw '{"dtype": "float32"}'` (21 s) on 3 cores of an 8-core x86
+# host.  kkt_fp="dd" is inert on a mesh in the JAX package (its systems are
+# row-sharded, so the Schur factor never reaches _direct_factor): its line
+# is held to the plain maxG51 line of the same run bit for bit, and to the
+# plain reference.  The float32 run is held as the f32 phase holds its
+# solves (F32_D_OBJ_REL); its DIMACS max to min(1e-2, max(1e-6, 10 x
+# F32_MESH_DIMACS_JAX)), the float64 rule on the widest reading of the
+# JAX package's float32 mesh run: `tests/jax_reference.py maxG51 --mesh 1
+# --kw '{"dtype": "float32"}'` pinned to 1, 2, 3, 4 and 8 cores reads
+# 1.1e-4, 6.8e-6, 6.8e-6, 1.4e-4 and 9.3e-3 (29 to 32 iterations; the
+# check's re-solve on a mesh is matrix-free Jacobi-PCG, in float32 here),
+# so the 1e-2 that decides the status is the bound.
+F32_MESH_DIMACS_JAX = 9.294669165622133e-03
+MESH_REFS.update({
+    ('maxG51', 'cone_dd', 1): ('PRIMAL_DUAL_OPTIMAL', 33, -261.4270223132595, 8.896723151857382e-07),
+    ('maxG51', 'kkt_dd', 1): MESH_REFS[('maxG51', '', 1)],
+    ('maxG51', 'f32', 1): ('PRIMAL_DUAL_OPTIMAL', 32, -261.42706298828125, 6.757726644830665e-06),
+    ('maxG51', 'cone_dd', 4): ('PRIMAL_DUAL_OPTIMAL', 33, -261.4270223132629, 1.0219884004336912e-06),
+})
 MESH_REFS.update({
     ('gpp500', 'exact_off', 1): ('PRIMAL_DUAL_OPTIMAL', 46, -1940.4850587882843, 0.0003545750800426915),
     ('gpp500', 'exact_off', 4): ('PRIMAL_DUAL_OPTIMAL', 44, -1940.485058790709, 2.320522997180106e-05),
@@ -326,7 +370,9 @@ MESH_ROWS = {  # (method, iteration, d_obj, mu) up to iteration 8
 }
 MESH_ROWS_TOL = 1e-8
 MESH_KW = {"": {}, "free": {"kkt_mode": "free"}, "exact": {"ratio_test": "exact"},
-           "exact_off": {"ratio_test": "exact", "kkt_hp": "off"}}
+           "exact_off": {"ratio_test": "exact", "kkt_hp": "off"},
+           "cone_dd": {"cone_fp": "dd"}, "kkt_dd": {"kkt_fp": "dd"},
+           "f32": {"dtype": "float32"}}
 MESH_TIMEOUT = 120.0  # seconds, every collective of a mesh phase
 
 # The batch phase's fleets: (name, generator in models/synthetic.py, its
@@ -335,7 +381,68 @@ BATCH_FLEETS = (
     ("mcp100x16", "maxcut_sdpa", {"n": 100}, 16, {}),
     ("maxG51x8", "maxcut_sdpa", {"n": 1000}, 8, {}),
     ("gpp500x4", "gpp_sdpa", {"n": 500}, 4, {"kkt_hp": "on"}),
+    ("maxG51x4mp", "maxcut_sdpa", {"n": 1000}, 4, {"kkt_mp": "on"}),
 )
+# The mixed-precision fleet's JAX reference: the JAX package's solve_batch
+# of the same four instances with kkt_mp="on" on the CPU, `JAX_PLATFORMS=cpu
+# python tests/jax_reference.py maxG51 --batch 4 --kw '{"kkt_mp": "on"}'` (166
+# s on 3 cores of an 8-core x86 host): every member finished in the fleet,
+# (status, iterations, d_obj) per member; held: status, d_obj 1e-7.
+BATCH_MP_REFS = (
+    ("PRIMAL_DUAL_OPTIMAL", 34, -261.42702231344725),
+    ("PRIMAL_DUAL_OPTIMAL", 36, -271.8973857417746),
+    ("PRIMAL_DUAL_OPTIMAL", 35, -258.7557923851299),
+    ("PRIMAL_DUAL_OPTIMAL", 33, -274.4927745631744),
+)
+
+# The f32 phase's references: the JAX package's host loop with
+# dtype="float32" (fused=False) on the CPU, `JAX_PLATFORMS=cpu python
+# tests/jax_reference.py NAME --kw '{"dtype": "float32"}'` on 3 cores of an
+# 8-core x86 host (15, 281 and 126 s): (status, iterations, d_obj, DIMACS
+# max).  Its float32 loop widens to float64 during the solve (y does, b does
+# not) and ends on a float32 DIMACS evaluation, so d_obj is a float32 dot
+# of b and y.  Held: status, d_obj within F32_D_OBJ_REL, DIMACS max within
+# max(1e-6, 10 x F32_DIMACS_JAX), and the same status from the port's
+# check run on the host at the card's end state.  The d_obj tolerance: the
+# JAX package's float32 runs differ from its float64 runs by 4.2e-9
+# (theta6), 9.4e-8 (control11) and 3.1e-7 (maxG51), a float32 unit is
+# 6e-8 relative, and the port's float32 host loop on the CPU met the JAX
+# package's within 1.1e-7 on the instances of tests/test_torch_f32.py: the
+# card's float32 phase A rounds in yet another order, so the hold allows
+# about three times the widest float32-to-float64 gap.
+F32_D_OBJ_REL = 1e-6
+F32_REFS = {
+    "maxG51": ("PRIMAL_DUAL_OPTIMAL", 30, -261.42694091796875, 2.5049973240220446e-06),
+    "control11": ("PRIMAL_DUAL_OPTIMAL", 30, -22.03302764892578, 2.100303023467146e-06),
+    "theta6": ("PRIMAL_DUAL_OPTIMAL", 67, -63.61066818237305, 1.3180000451029628e-06),
+}
+# A float32 check lands on whichever maker's dual slack the float32
+# Cholesky accepts, and at the last makers that is decided by rounding
+# (their Sbar has lambda_min / lambda_max of -3e-8 to +2e-7, inside the
+# float32 assembly's own error; tests/f32_check_witness.py, PERF.md §6):
+# so the DIMACS bound is set from the worse of the two makers'
+# readings in the JAX package's float32 runs (the maker the check falls
+# back to).  maxG51: the inaccurate maker at the end state of its run
+# above, 7.8e-5 (`tests/f32_check_witness.py solve maxG51 --package jax`);
+# its host-loop runs on 1, 2, 3 and 8 cores read 2.0e-6 to 2.5e-6.
+# control11: its accurate maker never factors in float32, so the readings
+# are the inaccurate maker's: the 3-core run above is held (on 1, 2 and 8
+# cores it reads 2.116e-6, 2.100e-6 and 2.069e-6).  theta6:
+# 1.3e-6 on 3 cores; on 8 cores the run keeps no accurate maker and ends
+# on PSDP's X at 5.2e-7, and its inaccurate maker reads 1.9e-4 (the check
+# at its end state loaded afresh, `tests/f32_check_witness.py check theta6`).
+F32_DIMACS_JAX = {"maxG51": 7.795246717228183e-05, "control11": 2.100303023467146e-06,
+                  "theta6": 1.8565017300221562e-04}
+# control11 alone may end NUMERICAL on the card: its inaccurate maker's
+# exact margin is lambda_min = 1.65e-7 lambda_max, the card's float32
+# assembly of Sbar moves it by 2.2e-6 to 2.4e-6 lambda_max (the host's by
+# 4.1e-7 to 5.2e-7, in both packages), so the card's check refuses both
+# makers at the card's end state and at the JAX and port CPU runs' end
+# states alike, while both packages' CPU checks accept the card's end
+# state at DIMACS 2.2e-6 (tests/f32_check_witness.py on the card and on
+# the host, PERF.md §6).  The phase then holds the port's host
+# check of the card's end state to the reference's status and bound.
+F32_CARD_CHECK_REFUSES = ("control11",)
 BATCH_KERNEL_FLEET = 4  # the gpp fleet's size: K1/K1s are held at its shapes
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
@@ -1397,6 +1504,22 @@ def _batch_phase(torch, hpmm, profiled_solve):
                   f"{one_end} / {solos[0].stats['fused_exit']}", flush=True)
         else:
             checks["no_own_kernels"] = launches == (0, 0)
+        if over.get("kkt_mp") == "on":
+            # the mixed-precision fleet: each member's f64 ladder its own,
+            # every member held to the JAX package's fleet too
+            rel_jax = [abs(r.d_obj - ref[2]) / abs(ref[2]) for r, ref in zip(rs, BATCH_MP_REFS)]
+            print(json.dumps({
+                "batch_mp": name, "jax_status": [ref[0] for ref in BATCH_MP_REFS],
+                "jax_iterations": [ref[1] for ref in BATCH_MP_REFS],
+                "rel_d_obj_to_jax_fleet": rel_jax,
+                "mp_f64_factors_of_mp_factors": [(r.stats.get("mp_f64_factors"),
+                                                  r.stats.get("mp_factors")) for r in rs],
+                "solo_mp_f64_factors_of_mp_factors": [(s_.stats.get("mp_f64_factors"),
+                                                       s_.stats.get("mp_factors")) for s_ in solos],
+            }), flush=True)
+            checks["jax_status"] = all(r.status == ref[0] for r, ref in zip(rs, BATCH_MP_REFS))
+            checks["jax_d_obj"] = all(x <= 1e-7 for x in rel_jax)
+            checks["mp_backend"] = all(r.stats.get("mp_factors", 0) > 0 for r in rs + solos)
         if not all(checks.values()):
             raise AssertionError(f"the {name} fleet: checks failed: {checks}")
 
@@ -1410,6 +1533,98 @@ def _batch_phase(torch, hpmm, profiled_solve):
     else:
         raise AssertionError("solve_batch took a fleet of mixed shapes")
     return gpp_launches
+
+
+def _f32_host_check(torch, path, over, ckpt):
+    """The port's DIMACS check on the host at the end state a float32
+    solve on the card wrote to ``ckpt``: (status, errors)."""
+    from hdsdp_tpu_torch import SDPProblem, read_sdpa
+    from hdsdp_tpu_torch.solver import algo, dimacs
+    from hdsdp_tpu_torch.solver.params import Params
+    from hdsdp_tpu_torch.utils.checkpoint import load_checkpoint
+
+    params = Params(**dict(over, fused=False, dtype="float32", verbose=False))
+    ipm = algo.DualIPM(SDPProblem.from_sdpa(read_sdpa(path)), params, torch.device("cpu"))
+    algo.load_state(ipm, load_checkpoint(ckpt))
+    errs = dimacs.check_solution(ipm)
+    return ipm.status, errs
+
+
+def _f32_phase(torch, solve_sdpa_file, instances, tmp):
+    """dtype="float32" on the host loop: maxG51, control11 and theta6
+    through HDSDPSolver with fused=False, each beside its float64
+    host-loop solve through solve_sdpa_file (peak device memory and wall
+    of both), held to the JAX package's float32 host loop (F32_REFS,
+    F32_DIMACS_JAX); the port's check on the host at the card's end state
+    must reach the reference's status too (F32_CARD_CHECK_REFUSES).  The
+    fused driver refuses float32.  Returns {name: (peak bytes f32, f64,
+    wall f32, f64)}."""
+    import numpy as np
+
+    from hdsdp_tpu_torch import HDSDPSolver, SDPProblem, read_sdpa
+
+    out = {}
+    for name in F32_REFS:
+        path = os.path.join(tmp, f"{name}.dat-s")
+        ckpt = os.path.join(tmp, f"{name}_f32_end.npz")
+        over = instances.write_instance(name, path)
+        runs = {}
+        for dt in ("float64", "float32"):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if dt == "float64":
+                res = solve_sdpa_file(path, device="cuda", verbose=False, fused=False, **over)
+            else:
+                res = HDSDPSolver(SDPProblem.from_sdpa(read_sdpa(path)), device="cuda",
+                                  verbose=False, fused=False, dtype=dt,
+                                  **over).optimize(checkpoint_to=ckpt)
+            torch.cuda.synchronize()
+            runs[dt] = (res, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base)
+        r, wall, peak = runs["float32"]
+        r64, wall64, peak64 = runs["float64"]
+        ref = F32_REFS[name]
+        rel = abs(r.d_obj - ref[2]) / abs(ref[2])
+        dmax = float(abs(r.dimacs).max())
+        bound = max(1e-6, 10.0 * F32_DIMACS_JAX[name])
+        host_status, host_errs = _f32_host_check(torch, path, over, ckpt)
+        host_dmax = float(np.max(np.abs(host_errs)))
+        print(json.dumps({
+            "f32": name, "overrides": dict(over, fused=False, dtype="float32"),
+            "status": r.status, "jax_f32_status": ref[0], "iterations": r.n_iters,
+            "jax_f32_iterations": ref[1], "f64_iterations": r64.n_iters, "d_obj": r.d_obj,
+            "jax_f32_d_obj": ref[2], "rel_d_obj_err": rel, "f64_d_obj": r64.d_obj,
+            "rel_to_f64_d_obj": abs(r.d_obj - r64.d_obj) / abs(r64.d_obj),
+            "dimacs_max": dmax, "jax_f32_dimacs_max": ref[3], "dimacs_bound": bound,
+            "host_check_status": host_status, "host_check_dimacs_max": host_dmax,
+            "peak_device_bytes": peak, "f64_peak_device_bytes": peak64,
+            "wall_s": wall, "f64_wall_s": wall64, "y_dtype": str(r.y.dtype),
+            "fused": r.stats.get("fused"), "device": r.device,
+        }), flush=True)
+        # the card's check may refuse both of control11's makers (see
+        # F32_CARD_CHECK_REFUSES): its errors are then all 1
+        refused = (name in F32_CARD_CHECK_REFUSES and r.status == "NUMERICAL"
+                   and bool((r.dimacs == 1.0).all()))
+        checks = {
+            "status": r.status == ref[0] or refused,
+            "d_obj": rel <= F32_D_OBJ_REL,
+            "dimacs": dmax <= bound or refused,
+            "host_check_status": host_status == ref[0],
+            "host_check_dimacs": host_dmax <= bound,
+            "host_loop": r.stats.get("fused") is False,
+            "device": r.device.startswith("cuda"),
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"[f32] {name}: checks failed: {checks}")
+        out[name] = (peak, peak64, wall, wall64)
+    try:
+        solve_sdpa_file(path, device="cuda", verbose=False, dtype="float32")
+    except NotImplementedError as e:
+        print(f"[f32] the fused driver refuses float32: {e}", flush=True)
+    else:
+        raise AssertionError("[f32] the fused driver ran dtype='float32'")
+    return out
 
 
 def _family_phase(torch, solve_sdpa_file, instances, hpmm):
@@ -1911,11 +2126,18 @@ def main() -> int:
     # -- the mesh path: one NCCL rank here, then four gloo ranks ----------
     mesh1 = _mesh1_phase(instances, dict(dense_d_obj, gpp500=gpp_d_obj))
     mesh1_launches = mesh1[("gpp500", "")]["launches"]
-    mesh4_launches = _mesh4_phase(instances, mesh1)
+    mesh4_launches, mesh4_dd = _mesh4_phase(instances, mesh1)
+    mesh_dd = {"mesh1 maxG51 cone_fp=dd (NCCL, 1 rank), by rank":
+               mesh1[("maxG51", "cone_dd")]["launches_by_rank"],
+               "mesh4 maxG51 cone_fp=dd (gloo, 4 ranks), by rank": mesh4_dd}
+
+    # -- dtype="float32" on the host loop ----------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        _f32_phase(torch, solve_sdpa_file, instances, tmp)
 
     _summary(torch, times, fleet_times, max_err, max_err_slice, wall,
              (launches, slice_launches), fused_launches, batch_launches,
-             mesh1_launches, mesh4_launches, dd_err, dd_times, dd_launches)
+             mesh1_launches, mesh4_launches, dd_err, dd_times, dd_launches, mesh_dd)
     return 0
 
 
@@ -1987,7 +2209,8 @@ def _mesh_line(phase, name, kw, ranks, r, ref, solo_d_obj=None, mesh1_d_obj=None
                                              "opcg_iters", "n_factor", "n_solve")},
         "psdp_runs": st.get("psdp_runs", 0), "psdp_ended_the_solve": r["psdp"],
         "kkt_free": r["kkt_free"],
-        "hpmm_launches_rank0": r["launches"],
+        "hpmm_launches_rank0": r["launches"], "k8_launches_rank0": r["k8_launches"],
+        "launches_k1_k1s_k8_by_rank": r["launches_by_rank"],
         "collectives_per_iteration": {k: v / it for k, v in sorted(r["counts"].items())},
     }), flush=True)
 
@@ -2006,21 +2229,28 @@ def _mesh_holds(r, ref, name, kw=""):
     the gpp500 witnesses (kw "exact", "exact_off") their log rows in place
     of the DIMACS max."""
     dmax = float(abs(r["dimacs"]).max())
+    tol = F32_D_OBJ_REL if kw == "f32" else 1e-7
     holds = {
         "status": r["status"] == ref[0],
-        "d_obj": abs(r["d_obj"] - ref[2]) <= 1e-7 * abs(ref[2]),
+        "d_obj": abs(r["d_obj"] - ref[2]) <= tol * abs(ref[2]),
         "device": r["device"].startswith("cuda"),
         "same_on_every_rank": bool(r["same_y"] and r["same_obj"]),
         "host_loop": r["stats"]["fused"] is False,
     }
     if kw in MESH_ROWS:
         holds["log_rows"] = _rows_err(r["log_rows"], MESH_ROWS[kw]) <= MESH_ROWS_TOL
+    elif kw == "f32":
+        holds["dimacs"] = dmax <= min(1e-2, max(1e-6, 10.0 * F32_MESH_DIMACS_JAX))
     else:
         holds["dimacs"] = dmax <= max(1e-6, 10.0 * ref[3])
     if name == "gpp500":
         hp = MESH_KW[kw].get("kkt_hp", "on") == "on"
         k1, k1s = r["launches"]
         holds["k1_k1s"] = (k1 > 0 and k1s == 2 * k1) if hp else k1 == k1s == 0
+    if kw == "cone_dd":
+        # the DD cone factor on every rank: K8 for the panels, K1s/K1 for
+        # the strips
+        holds["k8_k1_k1s_every_rank"] = all(min(row) > 0 for row in r["launches_by_rank"])
     return holds
 
 
@@ -2040,7 +2270,9 @@ def _mesh1_phase(instances, solo_d_obj):
         print(f"[mesh1] {mesh}", flush=True)
         for name, kw, repeat in (("maxG51", "", 2), ("control11", "", 1), ("gpp500", "", 1),
                                  ("gpp500", "exact", 1), ("gpp500", "exact_off", 1),
-                                 ("theta6", "", 1), ("maxG51", "free", 1)):
+                                 ("theta6", "", 1), ("maxG51", "free", 1),
+                                 ("maxG51", "cone_dd", 1), ("maxG51", "kkt_dd", 1),
+                                 ("maxG51", "f32", 1)):
             gen, kwargs, over = instances.INSTANCES[name]
             res = run.solve(mesh, gen, kwargs, dict(over, **MESH_KW[kw]), repeat=repeat)
             runs = res if repeat > 1 else [res]
@@ -2061,6 +2293,19 @@ def _mesh1_phase(instances, solo_d_obj):
                     checks["psdp"] = st.get("psdp_runs", 0) > 0
                 if kw == "free":
                     checks["operator"] = r["kkt_free"] and st.get("opcg_iters", 0) > 0
+                if kw == "kkt_dd":
+                    # inert on a mesh: the plain line's iterates, bit for bit
+                    plain = out[("maxG51", "")]
+                    checks["same_as_plain"] = (r["d_obj"] == plain["d_obj"]
+                                               and r["iterations"] == plain["iterations"]
+                                               and np.array_equal(r["y"], plain["y"]))
+                    checks["no_k8"] = r["k8_launches"] == 0
+                if kw == "f32":
+                    plain = out[("maxG51", "")]
+                    print(f"[mesh1] maxG51 dtype=float32: peak device bytes {r['peak_bytes']} "
+                          f"(float64 {plain['peak_bytes']}), wall {r['wall_s']:.3f} s (float64 "
+                          f"{plain['wall_s']:.3f} s), iterations {r['iterations']} (JAX "
+                          f"{ref[1]}, float64 {plain['iterations']})", flush=True)
                 if not all(checks.values()):
                     raise AssertionError(f"[mesh1] {name} {kw}: checks failed: {checks}")
             if repeat > 1:
@@ -2079,14 +2324,15 @@ def _mesh1_phase(instances, solo_d_obj):
 
 
 def _mesh4_phase(instances, mesh1):
-    """Four ranks on the one card over gloo: five solves (three instances
-    and the two gpp500 witnesses) and the dry run in one spawned world.
-    Returns gpp500's rank-0 (K1, K1s) launches."""
+    """Four ranks on the one card over gloo: six solves (three instances,
+    the two gpp500 witnesses and maxG51 with cone_fp="dd") and the dry run
+    in one spawned world.  Returns gpp500's rank-0 (K1, K1s) launches and
+    the cone_fp="dd" solve's (K1, K1s, K8) launches of every rank."""
     from hdsdp_tpu_torch.parallel import run
     from hdsdp_tpu_torch.parallel.mesh import spawn
 
     solves = (("maxG51", ""), ("control11", ""), ("gpp500", ""), ("gpp500", "exact"),
-              ("gpp500", "exact_off"))
+              ("gpp500", "exact_off"), ("maxG51", "cone_dd"))
     todo = []
     for name, kw in solves:
         gen, kwargs, over = instances.INSTANCES[name]
@@ -2099,6 +2345,8 @@ def _mesh4_phase(instances, mesh1):
     for (name, kw), r in zip(solves, res):
         ref = MESH_REFS[(name, kw, 4)]
         _mesh_line("mesh4", name, kw, 4, r, ref, mesh1_d_obj=mesh1[(name, kw)]["d_obj"])
+        if kw == "cone_dd":
+            dd_launches = r["launches_by_rank"]
         checks = _mesh_holds(r, ref, name, kw)
         checks["ranks"] = r["size"] == 4
         if name == "control11":
@@ -2111,12 +2359,12 @@ def _mesh4_phase(instances, mesh1):
     if not (max(dry["row_sharded"]["rows_per_rank"]) < dry["row_sharded"]["m"]
             and max(dry["slot_sharded"]["rows_per_rank"]) < dry["slot_sharded"]["m"]):
         raise AssertionError("[mesh4] a rank of the dry run held every row of M")
-    return launches
+    return launches, dd_launches
 
 
 def _summary(torch, times, fleet_times, max_err, max_err_slice, wall, slice_launches,
              fused_launches, batch_launches, mesh1_launches, mesh4_launches, dd_err, dd_times,
-             dd_launches):
+             dd_launches, mesh_dd):
     """The kernel table line, the card's line and the contract line."""
     launches, slice_launches = slice_launches
     # K1 at the pair shape; K1s as the mean of the four operand launches of
@@ -2148,7 +2396,8 @@ def _summary(torch, times, fleet_times, max_err, max_err_slice, wall, slice_laun
                              "batch (gpp fleet)": batch_launches[0],
                              "mesh1 (gpp500, NCCL, 1 rank)": mesh1_launches[0],
                              "mesh4 (gpp500, gloo, rank 0 of 4)": mesh4_launches[0],
-                             **{DD_PATHS[k]: v[1] for k, v in dd_launches.items()}},
+                             **{DD_PATHS[k]: v[1] for k, v in dd_launches.items()},
+                             **{k: [row[0] for row in v] for k, v in mesh_dd.items()}},
         # one rank's rows of the pair product on a 4-rank mesh
         "row_shard": {"shape": "[126,500]@[500,501]", "ms": tr["pairs_f64"],
                       "plain_ms": tr["pairs_plain"], "bound_ms": tr["pairs_bound"][0],
@@ -2177,7 +2426,8 @@ def _summary(torch, times, fleet_times, max_err, max_err_slice, wall, slice_laun
                              "batch (gpp fleet)": batch_launches[1],
                              "mesh1 (gpp500, NCCL, 1 rank)": mesh1_launches[1],
                              "mesh4 (gpp500, gloo, rank 0 of 4)": mesh4_launches[1],
-                             **{DD_PATHS[k]: v[2] for k, v in dd_launches.items()}},
+                             **{DD_PATHS[k]: v[2] for k, v in dd_launches.items()},
+                             **{k: [row[1] for row in v] for k, v in mesh_dd.items()}},
         # the four operand launches of one rank's two products on a 4-rank mesh
         "row_shard": {
             "shape": "[126,500] row blocks of FU and pair",
@@ -2206,7 +2456,8 @@ def _summary(torch, times, fleet_times, max_err, max_err_slice, wall, slice_laun
         "fleet_ms": dd_times["k8_fleet"],
         "fleet_singles_ms": dd_times["k8_fleet_singles"],
         "fleet_bound_ms": dd_times["k8_fleet_bound"][0],
-        "launches_by_path": {DD_PATHS[k]: v[0] for k, v in dd_launches.items()},
+        "launches_by_path": {**{DD_PATHS[k]: v[0] for k, v in dd_launches.items()},
+                             **{k: [row[2] for row in v] for k, v in mesh_dd.items()}},
         "whole_factor_maxG51_ms": dd_times["factor"],
         "whole_factor_maxG51_cholesky_f64_ms": dd_times["factor_cholesky_f64"],
     }]

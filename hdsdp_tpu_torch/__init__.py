@@ -16,7 +16,8 @@ resume (``HDSDPSolver.optimize(resume_from=..., checkpoint_to=...)``) and
 the KKT cross-check (``kkt_cross_validate``), and ``solve_batch``: a
 fleet of same-shape SDPs through one set of fused phase bodies.
 
-Policy: every tensor is float64 on the device the caller names; the
+Policy: every tensor is float64 on the device the caller names, unless
+``dtype="float32"`` asks for the JAX package's float32 host loop; the
 public entry points default to ``device="cuda"`` and raise when no card
 is usable (pass ``device="cpu"`` explicitly to run on the host).  The
 package imports neither jax nor hdsdp_tpu.

@@ -31,6 +31,7 @@ from __future__ import annotations
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -131,19 +132,22 @@ def _equilibrated_factor(M: torch.Tensor, f32: bool = True, inv: bool = False):
     is also the optimal diagonal preconditioning up to a factor n.
     Returns (L, s, ok) with s = 1/sqrt(diag(M)); L is f32 (the fast path)
     or f64 (the escalation tier for kappa > 1/eps_f32).  ``ok`` is a
-    0-dim bool tensor: the factorization's own failure report (the JAX
+    bool tensor: the factorization's own failure report (the JAX
     package reads the same failure from non-finite entries of L).
 
+    M may carry a leading instance axis ([N, m, m], a fleet of
+    solver.batch): s, L and ok then carry it too, one factor per instance.
+
     ``inv`` returns L^-1 (ops.chol.blocked_tri_inverse) instead of L, the
-    pre-inverted form of :func:`use_inverted_precond`; a near-zero factor
-    diagonal that overflows the explicit inverse fails ``ok`` here, at
-    factor time."""
-    d = torch.diagonal(M)
+    pre-inverted form of :func:`use_inverted_precond` (one [m, m] M only);
+    a near-zero factor diagonal that overflows the explicit inverse fails
+    ``ok`` here, at factor time."""
+    d = torch.diagonal(M, dim1=-2, dim2=-1)
     s = torch.rsqrt(torch.where(d > 0.0, d, 1.0))
-    Ms = M * s[:, None] * s[None, :]
+    Ms = M * s[..., :, None] * s[..., None, :]
     if f32:
         Ms = Ms.to(torch.float32)
-    ok, L = chol_ops.psd_check(Ms)
+    ok, L = chol_ops.psd_check(Ms, tuple(M.shape[:-2]))
     if inv:
         eye = torch.eye(M.shape[0], dtype=L.dtype, device=L.device)
         L = chol_ops.blocked_tri_inverse(torch.where(ok, L, eye))
@@ -186,7 +190,7 @@ def chol_apply(L: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
 
 def refine_solve(M, L, s, B, max_iter: int = 40, abs_tol: float = 1e-10,
                  rel_tol: float = 1e-10, pre_inverted: bool = False,
-                 hp_residual: bool = False, apply=None):
+                 hp_residual: bool = False, apply=None, live=None):
     """Mixed-precision iterative refinement: f32 (or f64) factor of the
     equilibrated M, f64 residuals.  Solves M X = B [m, k]:
 
@@ -206,9 +210,19 @@ def refine_solve(M, L, s, B, max_iter: int = 40, abs_tol: float = 1e-10,
     ``apply``: a preconditioner R -> ~M^-1 R that takes the place of
     (L, s), which are then unused (AdaptiveCG's DD tier).
 
-    Returns (X, status, sweeps).  One host read of three norms per
-    sweep."""
+    A FLEET (solver.batch): M [N, m, m], L, s and B [N, m, k] with a
+    leading instance axis, each instance refined on its own, as
+    ``jax.vmap`` runs the JAX package's while_loop: the sweeps go on
+    while some instance goes on, and an instance that has stopped keeps
+    its X from then on.  ``live`` (a host bool mask [N]) leaves the
+    others frozen from the start.  Status and sweeps are then numpy
+    arrays [N].  Each instance's products are its own matrix products,
+    so a member rounds as a single solve of it does.
+
+    Returns (X, status, sweeps).  One host read of the norms per sweep
+    (of every instance's)."""
     eps_res = 2.0 ** -45 if hp_residual else _EPS64
+    fleet = M.ndim == 3
     if hp_residual:
         from hdsdp_tpu_torch.ops import hpmm
 
@@ -216,47 +230,64 @@ def refine_solve(M, L, s, B, max_iter: int = 40, abs_tol: float = 1e-10,
 
         def mdot(X):
             return hpmm.hpmm_presliced(m_sl, e_m, X)
+    elif fleet:
+        def mdot(X):
+            return torch.stack([device.jdot(Mi, Xi) for Mi, Xi in zip(M, X)])
     else:
         def mdot(X):
-            return M @ X
+            # a float32 M (Params.dtype) against the float64 iterate
+            # computes in float64, as the JAX package's product does
+            return device.jdot(M, X)
 
     def apply_p(R):
         if apply is not None:
             return apply(R)
-        U = (s[:, None] * R).to(L.dtype)
-        T = L.T @ (L @ U) if pre_inverted else chol_apply(L, U)
-        return s[:, None] * T.to(torch.float64)
+        U = (s[..., :, None] * R).to(L.dtype)
+        T = L.mT @ (L @ U) if pre_inverted else chol_apply(L, U)
+        return s[..., :, None] * T.to(torch.float64)
 
     def colnorm(A):
-        return torch.max(torch.linalg.vector_norm(A, dim=0))
+        return torch.linalg.vector_norm(A, dim=-2).amax(-1)
 
-    bnorm, mnorm = torch.stack([colnorm(B), torch.max(torch.sum(torch.abs(M), dim=1))]).tolist()
+    bnorm, mnorm = (torch.stack([colnorm(B), torch.sum(torch.abs(M), dim=-1).amax(-1)])
+                    .cpu().numpy())
 
     def state(X, R):
-        rn, xn = torch.stack([colnorm(R), colnorm(X)]).tolist()
-        tol = max(abs_tol, rel_tol * bnorm, 16.0 * eps_res * (bnorm + mnorm * xn))
+        rn, xn = torch.stack([colnorm(R), colnorm(X)]).cpu().numpy()
+        tol = np.maximum(np.maximum(abs_tol, rel_tol * bnorm),
+                         16.0 * eps_res * (bnorm + mnorm * xn))
         return rn, tol
 
     X = apply_p(B)
     R = B - mdot(X)
     rn, tol = state(X, R)
-    it = 0
-    if rn != rn:
-        return X, STATUS_NUMERICAL, it
-    if rn < tol:
-        return X, STATUS_OK, it
-    while True:
+    it = np.zeros(rn.shape, dtype=np.int64)
+    status = np.where(rn != rn, STATUS_NUMERICAL, np.where(rn < tol, STATUS_OK, -1))
+    going = status < 0
+    if live is not None:
+        going &= np.asarray(live, dtype=bool)
+    while going.any():
         rn_prev = rn
-        X = X + apply_p(R)
-        R = B - mdot(X)
-        rn, tol = state(X, R)
-        it += 1
-        if rn != rn:
-            return X, STATUS_NUMERICAL, it
-        if rn < tol:
-            return X, STATUS_OK, it
-        if rn > 0.9 * rn_prev or it >= max_iter:
-            return X, STATUS_MAXITER, it
+        X_new = X + apply_p(R)
+        R_new = B - mdot(X_new)
+        if going.all():
+            X, R = X_new, R_new
+        else:
+            keep = torch.as_tensor(going, device=X.device)[:, None, None]
+            X, R = torch.where(keep, X_new, X), torch.where(keep, R_new, R)
+        rn_new, tol_new = state(X, R)
+        rn = np.where(going, rn_new, rn)
+        tol = np.where(going, tol_new, tol)
+        it = it + going
+        done = np.where(rn != rn, STATUS_NUMERICAL,
+                        np.where(rn < tol, STATUS_OK,
+                                 np.where((rn > 0.9 * rn_prev) | (it >= max_iter),
+                                          STATUS_MAXITER, -1)))
+        status = np.where(going, done, status)
+        going = going & (status < 0)
+    if not fleet:
+        return X, int(status), int(it)
+    return X, status, it
 
 
 class AdaptiveCG:

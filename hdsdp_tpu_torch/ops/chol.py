@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from hdsdp_tpu_torch.utils.device import jlift
+
 
 def psd_check(S: torch.Tensor, lead: tuple = ()):
     """(is_interior, L): a bool tensor of shape ``lead`` (0-dim for a
@@ -134,6 +136,9 @@ def congruence(L: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """L^{-1} W L^{-T} for symmetric W, batched.
 
     Used by the ratio test: S + a*dS >= 0 iff I + a L^{-1} dS L^{-T} >= 0
-    (ref sdpDenseConeILanczosMultiply, hdsdp_conic_sdp.c:462-505)."""
+    (ref sdpDenseConeILanczosMultiply, hdsdp_conic_sdp.c:462-505).  L and
+    W of different dtypes (a float32 solve's factor against a float64
+    step) compute in the wider one, as the JAX package's solve does."""
+    L, W = jlift(L, W)
     X = torch.linalg.solve_triangular(L, W, upper=False)
     return torch.linalg.solve_triangular(L, X.mT, upper=False)

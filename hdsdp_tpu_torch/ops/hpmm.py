@@ -329,9 +329,26 @@ def hpmm(a: torch.Tensor, b: torch.Tensor, gmax: int = 5) -> torch.Tensor:
 
     Keeps ~48 of f64's 52 mantissa bits; the rescale happens in f64 so
     inputs may use the full f64 exponent range.  NaN propagates to the
-    affected rows and columns."""
-    a_sl, b_sl, ea, eb = slice_operands(a, b, gmax)
-    return hpmm_pairs(a_sl, b_sl, gmax, ea, eb, out_f64=True)
+    affected rows and columns.
+
+    A float32 operand is sliced as the pair (x, 0) (what the JAX
+    package's ``dd.from_f64`` makes of it), and a float32 ``a`` gives a
+    float32 product, the sum of the double-single result, as the JAX
+    package's hpmm casts its result to a's dtype (a float32 solve,
+    Params.dtype)."""
+    if a.dtype == torch.float64 and b.dtype == torch.float64:
+        a_sl, b_sl, ea, eb = slice_operands(a, b, gmax)
+        return hpmm_pairs(a_sl, b_sl, gmax, ea, eb, out_f64=True)
+
+    def operand(x):
+        return x if x.dtype == torch.float64 else (x, torch.zeros_like(x))
+
+    a_sl, ea = hpmm_slice(operand(a), 1, gmax)
+    b_sl, eb = hpmm_slice(operand(b), 0, gmax)
+    if a.dtype == torch.float64:
+        return hpmm_pairs(a_sl, b_sl, gmax, ea, eb, out_f64=True)
+    ch, cl = hpmm_pairs(a_sl, b_sl, gmax, ea, eb)
+    return ch + cl
 
 
 def hpmm_dd(ah, al, bh, bl, gmax: int = 5):

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from hdsdp_tpu_torch.parallel.schur import RowShard
+from hdsdp_tpu_torch.utils.device import jdtype
 
 
 def sharded_pcg(mesh, M, rhs: torch.Tensor, max_iter: int = 200,
@@ -29,11 +30,15 @@ def sharded_pcg(mesh, M, rhs: torch.Tensor, max_iter: int = 200,
     if not isinstance(M, RowShard):
         M = RowShard.from_full(mesh, M)
     k = rhs.shape[0]
-    rhs = torch.nn.functional.pad(rhs, (0, M.n - k))
-    diag = M.diag()
+    # float32 and float64 operands (Params.dtype) meet in float64, as the
+    # JAX package's promotion has them
+    dt = jdtype(rhs, M.local)
+    rhs = torch.nn.functional.pad(rhs.to(dt), (0, M.n - k))
+    diag = M.diag().to(dt)
+    local = M.local.to(dt)
 
     def matvec(v):
-        return mesh.all_gather(M.local @ v)
+        return mesh.all_gather(local @ v)
 
     rhs_norm = torch.linalg.vector_norm(rhs)
     tol = torch.clamp(torch.clamp(rhs_norm * rel_tol, max=abs_tol), min=0.1 * abs_tol)

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from hdsdp_tpu_torch.parallel.schur import RowShard
+from hdsdp_tpu_torch.utils.device import jdtype
 
 
 def _padded_size(m: int, ndev: int, block: int) -> int:
@@ -132,14 +133,17 @@ def sharded_chol_solve(fac: ShardedCholFactor, rhs: torch.Tensor) -> torch.Tenso
     mesh = fac.mesh
     size, rank = mesh.size, mesh.rank
     single = rhs.ndim == 1
-    b = rhs[:, None] if single else rhs
+    # float32 and float64 operands (Params.dtype) solve in float64, as
+    # the JAX package's promotion has them
+    dt = jdtype(rhs, fac.L)
+    b = (rhs[:, None] if single else rhs).to(dt)
     k = b.shape[0]
     b = torch.nn.functional.pad(b, (0, 0, 0, fac.mp - k))
     B, mp = fac.block, fac.mp
     mloc = mp // size
     ppd = mloc // B
     npanels = mp // B
-    L = fac.L
+    L, Lp = fac.L.to(dt), fac.Lp.to(dt)
     grow = rank * mloc + torch.arange(mloc, device=L.device)
 
     # forward: L y = b; the panel's owner solves its block, then broadcasts
@@ -149,7 +153,7 @@ def sharded_chol_solve(fac: ShardedCholFactor, rhs: torch.Tensor) -> torch.Tenso
         owner, rid = p // ppd, (p % ppd) * B
         if rank == owner:
             t = L[rid:rid + B, :col] @ x[:col]
-            xp = torch.linalg.solve_triangular(fac.Lp[p], b[col:col + B] - t, upper=False)
+            xp = torch.linalg.solve_triangular(Lp[p], b[col:col + B] - t, upper=False)
         else:
             xp = torch.zeros((B, b.shape[1]), dtype=b.dtype, device=b.device)
         x[col:col + B] = mesh.broadcast(xp, owner)
@@ -162,6 +166,6 @@ def sharded_chol_solve(fac: ShardedCholFactor, rhs: torch.Tensor) -> torch.Tenso
         Lcols = torch.where((grow >= col + B)[:, None], L[:, col:col + B], 0.0)
         t = mesh.all_reduce(Lcols.mT @ x[rank * mloc:(rank + 1) * mloc])
         x[col:col + B] = torch.linalg.solve_triangular(
-            fac.Lp[p].mT, x[col:col + B] - t, upper=True)
+            Lp[p].mT, x[col:col + B] - t, upper=True)
     x = x[:k]
     return x[:, 0] if single else x

@@ -12,9 +12,12 @@ and a seed on every rank alike and return numpy arrays and numbers:
            iterations, objectives, DIMACS, stats, the iteration log's
            rows (``log_rows``), every rank's y and
            whether they agree bit for bit, the collectives' counts, the
-           K1/K1s launches, wall and peak device memory
+           K1/K1s launches and the K8 launches (rank 0's, and every rank's
+           (K1, K1s, K8)), wall and peak device memory
   kkt      one cone system's assemble + factor + build_kkt of each kind,
            M gathered from the shards, the rows each rank held
+  cone_factor  one rank's cone factor of a single-block S with
+           ``cone_dd`` against the single-device ``ConeSystem``'s
   dchol    sharded_cholesky / sharded_chol_solve of a given matrix
   pcg      sharded_pcg of a given matrix
   matvec   the sharded operator matvec against the single-device one
@@ -73,7 +76,7 @@ def _gathered(mesh, t: torch.Tensor):
 
 
 def solve(mesh, gen: str, kwargs: dict, overrides: dict, repeat: int = 1):
-    from hdsdp_tpu_torch.ops import hpmm
+    from hdsdp_tpu_torch.ops import ddchol, hpmm
     from hdsdp_tpu_torch.solver.solver import HDSDPSolver
     from hdsdp_tpu_torch.utils.log import Logger
 
@@ -82,7 +85,7 @@ def solve(mesh, gen: str, kwargs: dict, overrides: dict, repeat: int = 1):
     out = []
     for _ in range(repeat):
         mesh.reset_counts()
-        hpmm.KERNEL_LAUNCHES = hpmm.SLICE_LAUNCHES = 0
+        hpmm.KERNEL_LAUNCHES = hpmm.SLICE_LAUNCHES = ddchol.PANEL_LAUNCHES = 0
         if cuda:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -95,6 +98,9 @@ def solve(mesh, gen: str, kwargs: dict, overrides: dict, repeat: int = 1):
         wall = time.perf_counter() - t0
         counts = dict(mesh.counts)
         launches = (hpmm.KERNEL_LAUNCHES, hpmm.SLICE_LAUNCHES)
+        k8_launches = ddchol.PANEL_LAUNCHES
+        per_rank, _ = _gathered(mesh, torch.tensor([*launches, k8_launches],
+                                                   dtype=torch.float64, device=mesh.device))
         ys, same_y = _gathered(mesh, torch.as_tensor(r.y, dtype=torch.float64,
                                                      device=mesh.device))
         _, same_obj = _gathered(mesh, torch.tensor([r.d_obj, r.p_obj], dtype=torch.float64,
@@ -107,7 +113,8 @@ def solve(mesh, gen: str, kwargs: dict, overrides: dict, repeat: int = 1):
             "cones": type(ipm.cones).__name__, "which_method": ipm.which_method,
             "psdp": ipm.psdp is not None and ipm.psdp.X is not None,
             "kkt_free": ipm.kkt_free, "counts": counts,
-            "launches": launches, "wall_s": wall,
+            "launches": launches, "k8_launches": k8_launches,
+            "launches_by_rank": _np(per_rank).astype(int).tolist(), "wall_s": wall,
             "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
             "size": mesh.size, "device": str(mesh.device),
         })
@@ -142,6 +149,33 @@ def kkt(mesh, gen: str, kwargs: dict, system: str, seed: int = 11, Rd: float = -
             d["rows_per_rank"] = _np(rows).tolist()
         res[kind] = d
     return res
+
+
+def cone_factor(mesh, gen: str, kwargs: dict, seed: int = 11):
+    """The row-sharded system's cone factor with ``cone_dd`` (the DD
+    blocked Cholesky for a single block of n >= 512) on this rank, at a
+    point y ~ 0.01 N(0, 1) from ``seed``, against the single-device
+    ``ConeSystem``'s factor of the same S: whether the two agree bit for
+    bit on every rank, and whether the factor differs from the f64
+    Cholesky of S (so that the DD branch ran)."""
+    from hdsdp_tpu_torch.parallel.schur import RowShardedConeSystem
+    from hdsdp_tpu_torch.solver.cones import ConeSystem
+
+    prob = problem(gen, kwargs)
+    y = torch.as_tensor(np.random.default_rng(seed).normal(size=prob.m) * 0.01,
+                        device=mesh.device)
+    shift = 10.0 + prob.features.obj_fro_norm
+    out = []
+    for cones in (RowShardedConeSystem(prob, mesh), ConeSystem(prob, mesh.device)):
+        cones.cone_dd = True
+        S, s_lp = cones.assemble(1.0, -1.0, y, shift)
+        ok, L = cones.factor(S, s_lp)
+        out.append((bool(ok), S, L))
+    (ok_m, S_m, L_m), (ok_s, S_s, L_s) = out
+    same = torch.equal(S_m[0], S_s[0]) and torch.equal(L_m[0], L_s[0])
+    _, same_all = _gathered(mesh, torch.tensor([float(same)], device=mesh.device))
+    return {"ok": ok_m and ok_s, "same": same and same_all, "n": S_m[0].shape[-1],
+            "differs_from_f64": not torch.equal(L_m[0], torch.linalg.cholesky(S_m[0]))}
 
 
 def dchol(mesh, M: np.ndarray, rhs: np.ndarray, bad: np.ndarray, block: int):
@@ -238,8 +272,8 @@ def dryrun(mesh):
     return run(mesh)
 
 
-BODIES = {"solve": solve, "kkt": kkt, "dchol": dchol, "pcg": pcg, "matvec": matvec,
-          "dryrun": dryrun, "collectives": collectives}
+BODIES = {"solve": solve, "kkt": kkt, "cone_factor": cone_factor, "dchol": dchol, "pcg": pcg,
+          "matvec": matvec, "dryrun": dryrun, "collectives": collectives}
 
 
 def calls(mesh, todo):

@@ -38,6 +38,7 @@ from hdsdp_tpu_torch.ops import schur as schur_ops
 from hdsdp_tpu_torch.ops.schur import GroupArrays, LPArrays, gather_table
 from hdsdp_tpu_torch.solver import cones as cone_ops
 from hdsdp_tpu_torch.solver.cones import ConeSystem, KKTOut
+from hdsdp_tpu_torch.utils.device import DTYPE, jcast, jdtype
 
 
 # ----------------------------------------------------------------------
@@ -70,8 +71,9 @@ class RowShard:
 
     def plus_diag(self, d, true_rows: bool = False) -> "RowShard":
         """A new shard of M + diag(d): d a number or an [n] (or [m]) vector;
-        ``true_rows`` leaves the identity tail alone."""
-        out = self.local.clone()
+        ``true_rows`` leaves the identity tail alone.  A float64 d widens
+        a float32 shard, as the JAX package's sum does."""
+        out = self.local.to(jdtype(self.local, d), copy=True)
         diag = torch.diagonal(out, offset=self.row0)
         k = self._true_rows() if true_rows else self.mloc
         if isinstance(d, torch.Tensor):
@@ -147,27 +149,31 @@ class _ShardedOperatorMixin:
 
     def kkt_matvec(self, Us, s_lp, extra_diag, V):
         m = self.m
+        groups, lp, Us, s_lp, extra_diag, V = self._op_args(Us, s_lp, extra_diag, V)
         parts = []
         for v in V.unbind(1):
             out = torch.zeros(m, dtype=V.dtype, device=V.device)
-            for ga, U in zip(self.groups, Us):
+            for ga, U in zip(groups, Us):
                 n0, n1 = _row_block(U.shape[-1], self.mesh.rank, self.mesh.size)
                 out = out + schur_ops.group_schur_matvec_rows(ga, U, v, m, n0, n1)
             parts.append(out)
         out = extra_diag[:, None] * V + self.mesh.all_reduce(torch.stack(parts, dim=1))
-        if self.lp is not None:
+        if lp is not None:
             out = out + torch.stack(
-                [schur_ops.lp_schur_matvec(self.lp, s_lp, v) for v in V.unbind(1)], dim=1)
+                [schur_ops.lp_schur_matvec(lp, s_lp, v) for v in V.unbind(1)], dim=1)
         return out
 
     def kkt_pcg(self, Us, s_lp, extra_diag, pinv, B, abs_tol=1e-10, rel_tol=1e-10,
                 max_iter=600):
+        _, _, Us, s_lp, extra_diag, pinv, B = self._op_args(Us, s_lp, extra_diag, pinv, B)
         return cone_ops.pcg_body(
             lambda V: self.kkt_matvec(Us, s_lp, extra_diag, V),
             lambda R: pinv[:, None] * R, B, abs_tol, rel_tol, max_iter)
 
     def kkt_pcg_chol(self, Us, s_lp, extra_diag, Linv, s, B, abs_tol=1e-10,
                      rel_tol=1e-10, max_iter=600):
+        _, _, Us, s_lp, extra_diag, s, B = self._op_args(Us, s_lp, extra_diag, s, B)
+
         def papply(R):
             Rf = (s[:, None] * R).to(Linv.dtype)
             return s[:, None] * (Linv.T @ (Linv @ Rf)).to(B.dtype)
@@ -223,8 +229,8 @@ class RowShardedConeSystem(_ShardedOperatorMixin, ConeSystem):
 
     is_row_sharded = True
 
-    def __init__(self, prob, mesh, obj_scal: float = 1.0):
-        super().__init__(prob, mesh.device, obj_scal=obj_scal, layout="auto")
+    def __init__(self, prob, mesh, obj_scal: float = 1.0, dtype=DTYPE):
+        super().__init__(prob, mesh.device, obj_scal=obj_scal, layout="auto", dtype=dtype)
         if any(ga.Fs is None for ga in self.groups):
             raise ValueError("RowShardedConeSystem requires single-block groups "
                              "(slot-major layout); use ShardedConeSystem instead")
@@ -246,9 +252,12 @@ class RowShardedConeSystem(_ShardedOperatorMixin, ConeSystem):
 
     def build_kkt(self, L, s_lp, Rd, kind: str) -> KKTOut:
         k = max(self.rows, 1)
-        out = cone_ops.build_kkt(self.row_groups, self.row_lp, L, s_lp, Rd, self.m, kind,
-                                 hp=self.kkt_hp, col_groups=self.groups, col_lp=self.lp,
-                                 rows=k)
+        dt = self._dt(*L, s_lp, Rd)
+        groups, lp = self._data(dt)
+        out = cone_ops.build_kkt(self._cast("row_groups", self.row_groups, dt),
+                                 self._cast("row_lp", self.row_lp, dt), jcast(dt, *L),
+                                 jcast(dt, s_lp)[0], Rd, self.m, kind, hp=self.kkt_hp,
+                                 col_groups=groups, col_lp=lp, rows=k)
         keep = self.rows
         vecs = [out.asinv, out.asinvrdsinv] + ([out.asinvcsinv] if kind == "hsd" else [])
         V = torch.stack(vecs, dim=1)[:keep]
@@ -264,8 +273,10 @@ class RowShardedConeSystem(_ShardedOperatorMixin, ConeSystem):
         """This rank's rows of M_ij = sum tr(A_i X A_j X) (PSDP's
         X-weighted system; X in place of S^-1), identity-tailed."""
         k = max(self.rows, 1)
-        M = torch.zeros((k, self.m), dtype=self.dtype, device=self.device)
-        for ga, cg, X in zip(self.row_groups, self.groups, X_list):
+        dt = self._dt(*X_list)
+        M = torch.zeros((k, self.m), dtype=dt, device=self.device)
+        for ga, cg, X in zip(self._cast("row_groups", self.row_groups, dt),
+                             self._data(dt)[0], X_list):
             M = M + schur_ops.group_schur(ga, X, self.m, with_m=True, hp=self.kkt_hp, col=cg).M
         return RowShard(_tailed_rows(M[:self.rows], self.row0, self.mloc, self.m, self.m_pad),
                         self.row0, self.m_pad, self.m, self.mesh)
@@ -398,8 +409,8 @@ class ShardedConeSystem(_ShardedOperatorMixin, ConeSystem):
 
     is_row_sharded = True
 
-    def __init__(self, prob, mesh, obj_scal: float = 1.0):
-        super().__init__(prob, mesh.device, obj_scal=obj_scal, layout="flat")
+    def __init__(self, prob, mesh, obj_scal: float = 1.0, dtype=DTYPE):
+        super().__init__(prob, mesh.device, obj_scal=obj_scal, layout="flat", dtype=dtype)
         self.mesh = mesh
         self.ndev = mesh.size
         m = self.m
@@ -411,21 +422,28 @@ class ShardedConeSystem(_ShardedOperatorMixin, ConeSystem):
         self.row0 = mesh.rank * self.mloc
 
     def assemble(self, dC, scal, y, dEye):
+        dt = self._dt(y, dC, scal, dEye)
+        groups, lp = self._data(dt)
+        y = y.to(dt)
         parts = [_group_dual_part(sh, ga.C.shape[0], ga.C.shape[-1], scal, y)
-                 for ga, sh in zip(self.groups, self.shares)]
+                 for ga, sh in zip(groups, self._cast("shares", self.shares, dt))]
         if parts:
             flat = self.mesh.all_reduce(torch.cat([p.reshape(-1) for p in parts]))
             parts = torch.split(flat, [p.numel() for p in parts])
         S = []
-        for Wp, ga in zip(parts, self.groups):
+        for Wp, ga in zip(parts, groups):
             n = ga.C.shape[-1]
             eye = torch.eye(n, dtype=ga.C.dtype, device=ga.C.device)
             S.append(Wp.reshape(ga.C.shape) + dC * ga.C + dEye * eye)
-        s_lp = schur_ops.lp_dual(self.lp, dC, scal, y, dEye) if self.lp is not None else None
+        s_lp = schur_ops.lp_dual(lp, dC, scal, y, dEye) if lp is not None else None
         return tuple(S), s_lp
 
     def build_kkt(self, L, s_lp, Rd, kind: str) -> KKTOut:
-        m, dt, dev = self.m, self.dtype, self.device
+        m, dev = self.m, self.device
+        dt = self._dt(*L, s_lp, Rd)
+        groups, lp = self._data(dt)
+        shares = self._cast("shares", self.shares, dt)
+        L, s_lp = jcast(dt, *L), jcast(dt, s_lp)[0]
         is0 = self.mesh.rank == 0
         with_m = kind != "corr"
         M = torch.zeros((m, m), dtype=dt, device=dev) if with_m else None
@@ -434,7 +452,7 @@ class ShardedConeSystem(_ShardedOperatorMixin, ConeSystem):
         asinvcsinv = torch.zeros(m, dtype=dt, device=dev)
         zero = torch.zeros((), dtype=dt, device=dev)
         tr_u = csinv = csinvcsinv = csinvrdsinv = zero
-        for ga, sh, Lg in zip(self.groups, self.shares, L):
+        for ga, sh, Lg in zip(groups, shares, L):
             U = chol_ops.chol_inverse(Lg)
             Mp, ap, tp = _group_schur_part(ga, sh, U, m, with_m)
             if with_m:
@@ -450,16 +468,16 @@ class ShardedConeSystem(_ShardedOperatorMixin, ConeSystem):
                     csinv = csinv + torch.sum(ga.C * U)
                     csinvcsinv = csinvcsinv + torch.sum(ga.C * T)
                     csinvrdsinv = csinvrdsinv + Rd * torch.diagonal(T, dim1=-2, dim2=-1).sum()
-        if self.lp is not None and is0:
+        if lp is not None and is0:
             # the LP cone on rank 0 (small next to the SDP work)
-            out = schur_ops.lp_schur(self.lp, s_lp, m, with_m=with_m)
+            out = schur_ops.lp_schur(lp, s_lp, m, with_m=with_m)
             asinv = asinv + out.asinv
             trsas = trsas + out.trSAS
             tr_u = tr_u + out.trU
             if with_m:
                 M = M + out.M
             if kind == "hsd":
-                h = schur_ops.lp_hsd(self.lp, s_lp, m)
+                h = schur_ops.lp_hsd(lp, s_lp, m)
                 asinvcsinv = asinvcsinv + h.asinvcsinv
                 csinv = csinv + h.csinv
                 csinvcsinv = csinvcsinv + h.csinvcsinv
@@ -488,8 +506,9 @@ class ShardedConeSystem(_ShardedOperatorMixin, ConeSystem):
         """This rank's rows of PSDP's X-weighted system (X in place of
         S^-1), identity-tailed."""
         m = self.m
-        M = torch.zeros((m, m), dtype=self.dtype, device=self.device)
-        for ga, sh, X in zip(self.groups, self.shares, X_list):
+        dt = self._dt(*X_list)
+        M = torch.zeros((m, m), dtype=dt, device=self.device)
+        for ga, sh, X in zip(self._data(dt)[0], self._cast("shares", self.shares, dt), X_list):
             M = M + _group_schur_part(ga, sh, X, m, True)[0]
         pad = self.m_pad - m
         Mp = torch.nn.functional.pad(M, (0, pad, 0, pad))

@@ -46,8 +46,18 @@ with n >= 512 is the DD blocked Cholesky (``cones.cone_dd``); with
 regularization ladder, solved by f64 iterative refinement against the
 kept M (``_dd_refined_solve``), escalating to the f64 ladder when the
 refinement stalls.  Their "auto" settings engage on a TPU only, as in the
-JAX package (utils.device.is_tpu).  Not ported (raise
-NotImplementedError): a dtype other than float64, and "dd" on a mesh.
+JAX package (utils.device.is_tpu).  On a mesh, as in the JAX package,
+``cone_fp="dd"`` holds on every rank (both mesh systems inherit
+``ConeSystem.factor``) and ``kkt_fp="dd"`` changes nothing: the Schur
+factor leaves through the row-sharded branch of ``factor_kkt`` before
+``_direct_factor``, the only reader of ``_use_dd``.
+
+``dtype="float32"`` (Params.dtype) runs here and on a mesh as in the JAX
+package: b, the cone data and the first iterate are float32, and every
+operation takes the dtype the JAX package's promotion gives it
+(utils.device.jdtype), so y widens to float64 where the JAX loop's does.
+The fused driver refuses it (``refuse_f32_fused``), as the JAX one fails
+on it.
 """
 
 from __future__ import annotations
@@ -66,7 +76,7 @@ from hdsdp_tpu_torch.ops.ratio import vector_ratio_test
 from hdsdp_tpu_torch.solver.cones import ConeSystem, chunk_starts
 from hdsdp_tpu_torch.solver.params import Params, adjust_params
 from hdsdp_tpu_torch.utils import device
-from hdsdp_tpu_torch.utils.device import DTYPE
+from hdsdp_tpu_torch.utils.device import jdot, jdtype, jlift, working_dtype
 from hdsdp_tpu_torch.utils.log import Logger
 
 INF = 1e30
@@ -117,15 +127,22 @@ def choose_fused_mode(m: int, n_max: int, n_sum: int, kkt_free: bool, params: Pa
     return False if kkt_free else fused
 
 
-def _check_supported(params: Params, m: int, mesh=None) -> None:
-    """Raise for configurations whose code paths are not ported yet."""
+def _check_supported(params: Params) -> None:
+    """Raise for a ``fused`` setting the port does not know."""
     p = params
     if not (isinstance(p.fused, bool) or p.fused in ("auto", "phase", "iter")):
         raise ValueError(f"fused={p.fused!r}: expected True, False, 'auto', 'phase' or 'iter'")
-    if mesh is not None and "dd" in (p.kkt_fp, p.cone_fp):
-        raise NotImplementedError("kkt_fp / cone_fp = 'dd' on a mesh")
-    if p.dtype != "float64":
-        raise NotImplementedError(f"dtype={p.dtype!r}")
+
+
+def refuse_f32_fused(params: Params) -> None:
+    """The fused driver and solve_batch do not run dtype="float32": the
+    JAX package's fused phase bodies fail on it (a lax.cond of an f32
+    state against a float64 constant, hdsdp_tpu/solver/fused.py:799-818),
+    so there is nothing to hold them to.  The host loop runs it."""
+    if working_dtype(params.dtype) != torch.float64:
+        raise NotImplementedError(
+            f"dtype={params.dtype!r} on the fused driver or solve_batch: pass fused=False "
+            "(the host loop runs it, as the JAX package's does)")
 
 
 class DualIPM:
@@ -138,10 +155,10 @@ class DualIPM:
         self.params = params
         self.f = prob.features
         adjust_params(params, self.f)
-        _check_supported(params, prob.m, mesh)
+        _check_supported(params)
 
         self.m = prob.m
-        self.dtype = DTYPE
+        self.dtype = working_dtype(params.dtype)
         self.device = torch.device(device)
         self.mesh = mesh
         if mesh is not None and self.device != mesh.device:
@@ -151,17 +168,18 @@ class DualIPM:
         self.obj_scal = self.f.obj_scaling
         self.rhs_scal = self.f.rhs_scaling
         if mesh is None:
-            self.cones = ConeSystem(prob, self.device, obj_scal=self.obj_scal)
+            self.cones = ConeSystem(prob, self.device, obj_scal=self.obj_scal, dtype=self.dtype)
         elif all(g.nblk == 1 for g in prob.groups):
             from hdsdp_tpu_torch.parallel.schur import RowShardedConeSystem
 
             # constraint-row-sharded assembly: M born sharded, stays
             # sharded through the distributed Cholesky / CG
-            self.cones = RowShardedConeSystem(prob, mesh, obj_scal=self.obj_scal)
+            self.cones = RowShardedConeSystem(prob, mesh, obj_scal=self.obj_scal,
+                                              dtype=self.dtype)
         else:
             from hdsdp_tpu_torch.parallel.schur import ShardedConeSystem
 
-            self.cones = ShardedConeSystem(prob, mesh, obj_scal=self.obj_scal)
+            self.cones = ShardedConeSystem(prob, mesh, obj_scal=self.obj_scal, dtype=self.dtype)
         self.cones.ratio_mode = params.ratio_test
         self.cones.lanczos_dim = params.lanczos_dim
         self.cones.cone_dd = self._use_cone_dd(prob)
@@ -242,6 +260,13 @@ class DualIPM:
     def _vec(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
 
+    def _axpy(self, a, d: torch.Tensor) -> torch.Tensor:
+        """y + a d with the JAX package's promotions: a d in the dtype of d
+        and a, the sum in the wider of that and y's."""
+        d, = jlift(d, by=(a,))
+        y, ad = jlift(self.y, a * d)
+        return y + ad
+
     def _zeros_m(self) -> torch.Tensor:
         return torch.zeros((self.m,), dtype=self.dtype, device=self.device)
 
@@ -271,7 +296,7 @@ class DualIPM:
         fp = self.params.cone_fp
         if fp == "dd":
             return True
-        if fp != "auto" or self.mesh is not None:
+        if fp != "auto" or self.dtype != torch.float64 or self.mesh is not None:
             return False
         if max(prob.block_dims, default=0) < self.params.cone_dd_threshold:
             return False
@@ -285,7 +310,7 @@ class DualIPM:
         fp = self.params.kkt_fp
         if fp == "dd":
             return True
-        if fp != "auto" or self.m < self.params.kkt_dd_threshold:
+        if fp != "auto" or self.dtype != torch.float64 or self.m < self.params.kkt_dd_threshold:
             return False
         return device.is_tpu()
 
@@ -307,6 +332,7 @@ class DualIPM:
     # ------------------------------------------------------------------
     def _bound_step(self, dtau, dy):
         """dsl, dsu for direction (dtau, dy) (ref sBoundConeIUpdateBuffer)."""
+        dy, = jlift(dy, by=(dtau,))
         return dy - dtau * self.bound_lo, dtau * self.bound_up - dy
 
     def _bound_ratio(self, sl, su, dsl, dsu):
@@ -339,6 +365,7 @@ class DualIPM:
         interior = bool(ok)
         if with_bound:
             # bound cone expert check (ref sBoundConeInteriorCheckExpert)
+            vec, = jlift(vec, by=(dC, scal))
             su = dC * self.bound_up + scal * vec
             sl = -dC * self.bound_lo - scal * vec
             self.sl_chk, self.su_chk = sl, su
@@ -801,7 +828,7 @@ class DualIPM:
         bscale = torch.clamp(torch.linalg.vector_norm(B, dim=0), min=1e-300)
 
         def worst_of(X):
-            R = B - M @ X
+            R = B - jdot(M, X)
             return R, float(torch.max(torch.linalg.vector_norm(R, dim=0) / bscale))
 
         prev = None
@@ -918,8 +945,9 @@ class DualIPM:
         self.Schk, self.s_lp_chk, self.Lchk = S, s, L
         interior = bool(ok)
         if self.which_method != "hsd":
-            sl = self.sl + alpha * self.dsl
-            su = self.su + alpha * self.dsu
+            sl, dsl, su, dsu = jlift(self.sl, self.dsl, self.su, self.dsu, by=(alpha,))
+            sl = sl + alpha * dsl
+            su = su + alpha * dsu
             self.sl_chk, self.su_chk = sl, su
             interior = interior and bool(torch.all(sl > 0) & torch.all(su > 0))
         return interior
@@ -964,9 +992,11 @@ class DualIPM:
         p_obj_new = self.d_obj_internal
         acc = self.params.prec_ord_acc
 
-        dy1 = self.d1 / mu - self.d2
-        v2 = self.b / mu - self.kkt.asinv
-        prox2 = float(dy1 @ v2)
+        d1, d2 = jlift(self.d1, self.d2, by=(mu,))
+        b, asinv = jlift(self.b, self.kkt.asinv, by=(mu,))
+        dy1 = d1 / mu - d2
+        v2 = b / mu - asinv
+        prox2 = float(jdot(dy1, v2))
         if prox2 < 0.0:
             self.prox_norm = 1.0
             return 0
@@ -987,10 +1017,10 @@ class DualIPM:
 
         # relative gap estimate (ref :593-610)
         if self.which_method == "infeas":
-            rel_gap = float(dy1 @ (self.kkt.asinvrdsinv + self.kkt.asinv))
+            rel_gap = float(jdot(dy1, self.kkt.asinvrdsinv + self.kkt.asinv))
             rel_gap += float(self.kkt.trace_sinv) * self.Rd
         else:
-            rel_gap = float(dy1 @ self.kkt.asinv)
+            rel_gap = float(jdot(dy1, self.kkt.asinv))
         rel_gap += self.all_cone_dims
         p_obj_new += rel_gap * mu
 
@@ -1005,6 +1035,7 @@ class DualIPM:
         d = -dy1
         slc = self.y - self.bound_lo
         suc = self.bound_up - self.y
+        d, slc, suc = jlift(d, slc, suc, by=(mu,))
         xl = mu * (1.0 / slc - d / (slc * slc))
         xu = mu * (1.0 / suc + d / (suc * suc))
         p_inf = float(torch.max(torch.abs(xu - xl)))
@@ -1076,7 +1107,7 @@ class DualIPM:
 
             # guarantee feasibility
             while True:
-                cand = self.y + step * dy
+                cand = self._axpy(step, dy)
                 interior = self.check_is_interior(1.0, cand)
                 if not interior:
                     step *= 0.5
@@ -1090,7 +1121,7 @@ class DualIPM:
             new_barrier = self.logdet_cur()
             if new_barrier > barrier:
                 step *= 0.5
-                cand = self.y + step * dy
+                cand = self._axpy(step, dy)
                 self.check_is_interior(1.0, cand)
                 barrier = -INF
 
@@ -1103,7 +1134,8 @@ class DualIPM:
             resi = self.Rd
             while True:
                 self.Rd = resi * (1 - alpha_c * rate)
-                cand = self.y + alpha_c * (rate * d3 - d2)
+                d2_, d3_ = jlift(d2, d3, by=(rate,))
+                cand = self._axpy(alpha_c, rate * d3_ - d2_)
                 if self.check_is_interior(1.0, cand):
                     break
                 rate *= 0.8
@@ -1191,14 +1223,15 @@ class DualIPM:
             gamma = self.adaptive_resi_rate()
 
             # dy = d1/mu - d2 + gamma*d3 (ref HDSDP_Infeasible_BuildStep)
-            dy = self.d1 / self.mu - self.d2 + gamma * self.d3
+            d1, d2, d3 = jlift(self.d1, self.d2, self.d3, by=(self.mu, gamma))
+            dy = d1 / self.mu - d2 + gamma * d3
 
             step = self.ratio_test(0.0, dy, gamma, "dual")
             self.d_step = min(0.95 * step, 1.0)
             if self.d_step < 1e-03:
                 self.n_small_step += 1
 
-            self.y = self.y + self.d_step * dy
+            self.y = self._axpy(self.d_step, dy)
             self.Rd = self.Rd * (1.0 - gamma * self.d_step)
 
             if not self.infeasible_corrector():
@@ -1234,7 +1267,7 @@ class DualIPM:
         pd_scal = 1.0 / (self.rhs_scal * self.obj_scal * self.tau)
         n_sum = max(self.f.n_sum_cone_dims, 1)
         self.d_infeas = np.sqrt(n_sum) * abs(self.Rd) / (self.rhs_scal * self.tau)
-        self.d_obj_internal = float(self.b @ self.y)
+        self.d_obj_internal = float(jdot(self.b, self.y))
         self.d_obj_val = self.d_obj_internal * pd_scal
         self.p_obj_val = self.p_obj_internal * pd_scal
         self.comp = self.p_obj_val - self.d_obj_val
@@ -1317,7 +1350,7 @@ class DualIPM:
             self.print_log("hsd")
 
             self.tau += step * dtau
-            self.y = self.y + step * dy
+            self.y = self._axpy(step, dy)
             self.Rd = self.Rd * (1.0 - step)
 
             # barrier reduction (ref :484-499)
@@ -1354,11 +1387,12 @@ class DualIPM:
         mu, tau = self.mu, self.tau
         b = self.b
         old_obj = self.d_obj_internal
-        bty = float(b @ self.y)
+        bty = float(jdot(b, self.y))
         self.d_obj_internal = bty
         self.obj_improve = bty - old_obj
 
-        dd1 = b - mu * self.kkt.asinvcsinv
+        b, asinvcsinv = jlift(b, self.kkt.asinvcsinv, by=(mu,))
+        dd1 = b - mu * asinvcsinv
         csinvcsinv = float(self.kkt.csinvcsinv)
         csinv = float(self.kkt.csinv)
         csinvrdsinv = float(self.kkt.csinvrdsinv)
@@ -1366,11 +1400,14 @@ class DualIPM:
         num = -bty + mu / tau + mu * (csinv - csinvrdsinv)
         den = mu * csinvcsinv + mu / (tau * tau)
         tau_over_mu = tau / mu
-        num -= float(dd1 @ (self.d1 * tau_over_mu - self.d2 + self.d3))
-        den += float(dd1 @ (self.d1 / mu + self.d4))
+        d1, d2, d3 = jlift(self.d1, self.d2, self.d3, by=(tau_over_mu,))
+        num -= float(jdot(dd1, d1 * tau_over_mu - d2 + d3))
+        d1, d4 = jlift(self.d1, self.d4, by=(mu,))
+        den += float(jdot(dd1, d1 / mu + d4))
 
         dtau = 0.0 if abs(den) < 1e-12 else num / den
-        dy = self.d1 * (tau + dtau) / mu + self.d4 * dtau - self.d2 + self.d3
+        d1, d2, d3, d4 = jlift(self.d1, self.d2, self.d3, self.d4, by=(tau + dtau, mu, dtau))
+        dy = d1 * (tau + dtau) / mu + d4 * dtau - d2 + d3
         return dtau, dy
 
     # ------------------------------------------------------------------
@@ -1497,12 +1534,14 @@ class DualIPM:
         max_step = INF
 
         if p_obj_type > 0:
-            dy1 = -self.d1 / self.mu
+            d1, = jlift(self.d1, by=(self.mu,))
+            dy1 = -d1 / self.mu
             step = self.ratio_test(0.0, dy1, 0.0, "chk")
             step = min(step * 0.97, 1e+05)
             self.mu = self.mu / (1.0 + step)
         else:
-            dy2 = -self.d1 / self.mu + self.d2
+            d1, d2 = jlift(self.d1, self.d2, by=(self.mu,))
+            dy2 = -d1 / self.mu + d2
             step = self.ratio_test(0.0, dy2, 0.0, "dual", with_bound=False)
             max_step = min(max_step, step)  # SDP/LP cones only (ref :1273-1276)
             step_b = float(self._bound_ratio(self.sl, self.su, self.dsl, self.dsu))
@@ -1519,7 +1558,8 @@ class DualIPM:
                 if p_step < 1e-05:
                     return False
 
-            dy1 = -p_step * self.d1 / self.mu
+            d1, = jlift(self.d1, by=(p_step, self.mu))
+            dy1 = -p_step * d1 / self.mu
             # second ratio test continues the running min (ref :1314-1322)
             self.set_step(0.0, dy1, 0.0)
             step2 = float(
@@ -1542,9 +1582,11 @@ class DualIPM:
     def feasible_build_step(self):
         """ref HDSDP_Feasible_BuildStep (:1334-1364)."""
         while True:
-            dy = self.d1 / self.mu - self.d2
-            v = self.b / self.mu - self.kkt.asinv
-            prox2 = float(v @ dy)
+            d1, d2 = jlift(self.d1, self.d2, by=(self.mu,))
+            b, asinv = jlift(self.b, self.kkt.asinv, by=(self.mu,))
+            dy = d1 / self.mu - d2
+            v = b / self.mu - asinv
+            prox2 = float(jdot(v, dy))
             if prox2 < 0.0:
                 self.prox_norm = 1e+02
                 return dy
@@ -1578,7 +1620,7 @@ class DualIPM:
     def get_potential(self, rho: float, y) -> float:
         """ref HDSDP_GetPotential (:1366-1387); uses current factors."""
         pot = self.logdet_cur()
-        obj = float(self.b @ y)
+        obj = float(jdot(self.b, y))
         return pot + rho * np.log(self.p_obj_internal - obj)
 
     def reduce_potential(self, dy) -> bool:
@@ -1593,7 +1635,7 @@ class DualIPM:
         pot_now = self.get_potential(rho, self.y)
 
         while True:
-            cand = self.y + dual_step * dy
+            cand = self._axpy(dual_step, dy)
             if not self.check_is_interior(1.0, cand):
                 dual_step *= 0.33
                 continue
@@ -1618,7 +1660,7 @@ class DualIPM:
         """ref HDSDP_GetBarrier (:1458-1479): -(b'y + mu*logdet)."""
         val = float(self.cones.logdet(self.L, self.s_lp))
         val += float(torch.sum(torch.log(self.sl)) + torch.sum(torch.log(self.su)))
-        return -(float(self.b @ y) + self.mu * val)
+        return -(float(jdot(self.b, y)) + self.mu * val)
 
     def feasible_corrector(self):
         """ref HDSDP_Feasible_Corrector (:1481-1614)."""
@@ -1639,7 +1681,7 @@ class DualIPM:
             n_max_corr = 0
             p.corrector_b = 0
 
-        b_dot_d1 = float(self.b @ self.d1)
+        b_dot_d1 = float(jdot(self.b, self.d1))
         b_dot_corr = 0.0
 
         for _ in range(n_max_corr):
@@ -1647,13 +1689,14 @@ class DualIPM:
                 break
             self.build_kkt("corr")
             d2 = self.solve_kkt(self.kkt.asinv)
-            b_dot_d2 = float(self.b @ d2)
+            b_dot_d2 = float(jdot(self.b, d2))
             if b_dot_d2 > 0 and b_dot_d1 > 0:
                 self.mu = b_dot_d1 / b_dot_d2
             self.mu *= shrink
 
-            dy = self.d1 / self.mu - d2
-            b_dot_corr += float(self.b @ dy)  # accumulates across correctors
+            d1, d2 = jlift(self.d1, d2, by=(self.mu,))
+            dy = d1 / self.mu - d2
+            b_dot_corr += float(jdot(self.b, dy))  # accumulates across correctors
             # (faithful to ref :1520,1554-1557 where it is never reset)
 
             barrier_now = self.get_barrier_fn(self.y)
@@ -1662,7 +1705,7 @@ class DualIPM:
             step = min(step, p.pot_rho / max(self.prox_norm, 1e-300))
 
             while True:
-                cand = self.y + step * dy
+                cand = self._axpy(step, dy)
                 if not self.check_is_interior(1.0, cand):
                     step *= 0.5
                     continue
@@ -1693,6 +1736,7 @@ class DualIPM:
             if fused:
                 from hdsdp_tpu_torch.solver.fused import solve_fused
 
+                refuse_f32_fused(self.params)
                 return solve_fused(self, d_only, mode=fused)
             self.psdp = None
             self.phase_a(d_only)
@@ -1718,15 +1762,22 @@ def load_state(ipm: DualIPM, d: dict, warm_start: bool = False) -> None:
 
     ``warm_start=True`` is what resuming a checkpoint does (the JAX
     package's ``apply_checkpoint``): y becomes the dual start ``y0`` of the
-    next solve and only the makers are set besides; the solve's own start
-    sets the rest."""
+    next solve and only the makers are set besides, all in the IPM's dtype;
+    the solve's own start sets the rest.  Otherwise each vector keeps its
+    saved dtype where that is the wider (the y of a float32 solve that
+    widened stays float64, as the solve left it)."""
     if int(d["m"]) != ipm.m:
         raise ValueError(f"state is for m={int(d['m'])}, problem has m={ipm.m}")
     if warm_start:
         ipm.y0 = ipm._vec(d["y"])
-        _load_makers(ipm, d)
+        _load_makers(ipm, d, ipm._vec)
         return
-    ipm.y = ipm._vec(d["y"])
+
+    def vec(x):
+        t = torch.as_tensor(np.asarray(x), device=ipm.device)
+        return t.to(jdtype(t, ipm._vec(())))
+
+    ipm.y = vec(d["y"])
     ipm.tau = float(d["tau"])
     ipm.Rd = float(d["rd"])
     ipm.mu = float(d["mu"])
@@ -1735,15 +1786,15 @@ def load_state(ipm: DualIPM, d: dict, warm_start: bool = False) -> None:
         ipm.n_iter = int(d["n_iter"])
     if "status" in d:
         ipm.status = str(d["status"])
-    _load_makers(ipm, d)
+    _load_makers(ipm, d, vec)
 
 
-def _load_makers(ipm: DualIPM, d: dict) -> None:
+def _load_makers(ipm: DualIPM, d: dict, vec) -> None:
     for name in ("acc", "inacc"):
         y = np.asarray(d[f"maker_{name}_y"])
         if y.size:
             setattr(ipm, f"maker_{name}", Maker(
                 mu=float(d[f"maker_{name}_mu"]),
-                y=ipm._vec(y),
-                dy=ipm._vec(d[f"maker_{name}_dy"]),
+                y=vec(y),
+                dy=vec(d[f"maker_{name}_dy"]),
             ))

@@ -65,12 +65,16 @@ def solve_batch(probs: Sequence[SDPProblem], device="cuda",
     Ozaki assemblies, corrector counts, max_iter) is the first instance's.
     Instances that leave the common Phase A -> B path are re-solved solo
     with the same overrides on the same device and their solo Result
-    returned.  ``kkt_mp="on"`` is not ported for a fleet (raises)."""
+    returned.  With ``kkt_mp="on"`` each instance takes the f64 ladder of
+    its Schur factor on its own (``fused._factor_m_mp``), as under the JAX
+    package's vmap; ``stats["mp_f64_factors"]`` counts them per instance
+    (of ``stats["mp_factors"]``)."""
     t0 = time.time()
     if not probs:
         return []
     dev = resolve_device(device)
     param_overrides.setdefault("verbose", False)
+    algo.refuse_f32_fused(Params(**param_overrides))
     ipms = [algo.DualIPM(prob, Params(**param_overrides), device=dev) for prob in probs]
     if any(_shape_key(ipm) != _shape_key(ipms[0]) for ipm in ipms):
         raise ValueError(
@@ -79,8 +83,6 @@ def solve_batch(probs: Sequence[SDPProblem], device="cuda",
         )
     p0 = ipms[0].params
     cfg = fused._config_from_ipm(ipms[0])
-    if cfg.mp:
-        raise NotImplementedError("solve_batch with kkt_mp='on'")
 
     def solo(i: int, why: str) -> Result:
         r = HDSDPSolver(probs[i], device=dev, **param_overrides).optimize()
@@ -136,6 +138,10 @@ def solve_batch(probs: Sequence[SDPProblem], device="cuda",
         acct["kernel_launches"][0] += hpmm.KERNEL_LAUNCHES - k1
         acct["kernel_launches"][1] += hpmm.SLICE_LAUNCHES - k1s
         acct["kernel_launches"][2] += ddchol.PANEL_LAUNCHES - k8
+        if cfg.mp:
+            for k, i in enumerate(idx):
+                ipms[i]._count("mp_factors", int(c.mp_factors[k]))
+                ipms[i]._count("mp_f64_factors", int(c.mp_f64[k]))
         return st
 
     # ---- Phase A, the whole fleet

@@ -29,7 +29,7 @@ from hdsdp_tpu_torch.ops import chol as chol_ops
 from hdsdp_tpu_torch.ops import ratio as ratio_ops
 from hdsdp_tpu_torch.ops import schur as schur_ops
 from hdsdp_tpu_torch.ops.schur import GroupArrays, LPArrays
-from hdsdp_tpu_torch.utils.device import DTYPE
+from hdsdp_tpu_torch.utils.device import DTYPE, jcast, jdtype, jlift
 
 INF = 1e30
 
@@ -52,10 +52,10 @@ class KKTOut(NamedTuple):
     trace_sinv: torch.Tensor
 
 
-def _tensor(x, device, index: bool):
+def _tensor(x, device, index: bool, dtype=DTYPE):
     if x is None:
         return None
-    dt = torch.int64 if index else DTYPE
+    dt = torch.int64 if index else dtype
     return torch.tensor(np.asarray(x), dtype=dt, device=device)
 
 
@@ -413,18 +413,24 @@ class ConeSystem:
     """Holds the device-side cone data and the cone operations."""
 
     def __init__(self, prob: SDPProblem, device, obj_scal: float = 1.0,
-                 layout: str = "auto"):
+                 layout: str = "auto", dtype=DTYPE):
         """layout: "auto" stores single-block groups slot-major with the
         diag/support gather specializations and multi-block groups flat;
         "slot" keeps slot-major but disables the specializations, and
         "flat" forces the packed-slot layout on every group (both for
-        holding one bucket against another)."""
+        holding one bucket against another).
+
+        dtype: the dtype of the cone data (Params.dtype).  With float32
+        data an operation whose other operands are float64 (or a numpy
+        float64 scalar) computes in float64 with the data widened, as the
+        JAX package's promotion does (``_data``)."""
         if layout not in ("auto", "slot", "flat"):
             raise ValueError(f"layout={layout!r}")
         self.m = prob.m
         specialize = layout == "auto"
         self.device = torch.device(device)
-        self.dtype = DTYPE
+        self.dtype = dtype
+        self._wide = {}  # float64 copies of float32 data, made on first use
         dev = self.device
 
         def _slot_major(g):
@@ -490,29 +496,29 @@ class ConeSystem:
 
         def _make_group(g):
             kw = dict(
-                C=_tensor(g.C * obj_scal, dev, False),
-                Ad=_tensor(g.Ad, dev, False),
+                C=_tensor(g.C * obj_scal, dev, False, dtype),
+                Ad=_tensor(g.Ad, dev, False, dtype),
                 didx=_tensor(g.didx, dev, True),
                 dblk=_tensor(g.dblk, dev, True),
             )
             if g.nblk == 1 and layout != "flat":
                 Fs, lams, dpos, dw, spos, sval = _slot_major(g)
                 return GroupArrays(
-                    F=torch.zeros((1, 1, g.dim), dtype=DTYPE, device=dev),
-                    lam=torch.zeros((1, 1), dtype=DTYPE, device=dev),
+                    F=torch.zeros((1, 1, g.dim), dtype=dtype, device=dev),
+                    lam=torch.zeros((1, 1), dtype=dtype, device=dev),
                     seg=torch.zeros((1, 1), dtype=torch.int64, device=dev),
                     pos=None,
-                    Fs=_tensor(Fs, dev, False),
-                    lams=_tensor(lams, dev, False),
+                    Fs=_tensor(Fs, dev, False, dtype),
+                    lams=_tensor(lams, dev, False, dtype),
                     dpos=_tensor(dpos, dev, True),
-                    dw=_tensor(dw, dev, False),
+                    dw=_tensor(dw, dev, False, dtype),
                     spos=_tensor(spos, dev, True),
-                    sval=_tensor(sval, dev, False),
+                    sval=_tensor(sval, dev, False, dtype),
                     **kw,
                 )
             return GroupArrays(
-                F=_tensor(g.F, dev, False),
-                lam=_tensor(g.lam, dev, False),
+                F=_tensor(g.F, dev, False, dtype),
+                lam=_tensor(g.lam, dev, False, dtype),
                 seg=_tensor(g.seg, dev, True),
                 pos=None,
                 **kw,
@@ -526,8 +532,8 @@ class ConeSystem:
 
         self.has_lp = prob.lp is not None
         self.lp = (
-            LPArrays(A=_tensor(prob.lp.A, dev, False),
-                     c=_tensor(prob.lp.c * obj_scal, dev, False))
+            LPArrays(A=_tensor(prob.lp.A, dev, False, dtype),
+                     c=_tensor(prob.lp.c * obj_scal, dev, False, dtype))
             if self.has_lp else None
         )
 
@@ -545,9 +551,40 @@ class ConeSystem:
     ratio_mode: str = "auto"
     lanczos_dim: int = 30
 
+    def _dt(self, *xs) -> torch.dtype:
+        """The dtype of an operation of the cone data with ``xs``."""
+        return jdtype(torch.empty(0, dtype=self.dtype), *xs)
+
+    def _cast(self, key: str, value, dt):
+        """``value`` (cone data: a NamedTuple of tensors, a tuple of them,
+        or None) in dtype ``dt``: as stored, or its float64 copy, kept
+        under ``key`` (float32 values widened exactly: what the JAX
+        package's promotion computes with)."""
+        if dt == self.dtype or value is None:
+            return value
+        if key not in self._wide:
+            def wide(v):
+                if isinstance(v, tuple) and not hasattr(v, "_fields"):
+                    return tuple(wide(x) for x in v)
+                return v._replace(**{k: x.to(dt) for k, x in v._asdict().items()
+                                     if isinstance(x, torch.Tensor) and x.is_floating_point()})
+            self._wide[key] = wide(value)
+        return self._wide[key]
+
+    def _data(self, dt):
+        """(groups, lp) in dtype ``dt`` (``_cast``)."""
+        return self._cast("groups", self.groups, dt), self._cast("lp", self.lp, dt)
+
+    def data_for(self, *xs):
+        """(groups, lp) in the dtype of an operation of the cone data with
+        ``xs`` (the module-level functions take them as they are)."""
+        return self._data(self._dt(*xs))
+
     def assemble(self, dC, scal, y, dEye):
         """B = dEye*I + scal*A'y + dC*C per cone."""
-        return assemble(self.groups, self.lp, dC, scal, y, dEye, hp=self.dual_hp)
+        dt = self._dt(y, dC, scal, dEye)
+        groups, lp = self._data(dt)
+        return assemble(groups, lp, dC, scal, y.to(dt), dEye, hp=self.dual_hp)
 
     def factor(self, S, s_lp):
         return factor(S, s_lp, dd=self.cone_dd)
@@ -556,7 +593,9 @@ class ConeSystem:
         return logdet(L, s_lp)
 
     def build_kkt(self, L, s_lp, Rd, kind: str) -> KKTOut:
-        return build_kkt(self.groups, self.lp, L, s_lp, Rd, self.m, kind,
+        dt = self._dt(*L, s_lp, Rd)
+        groups, lp = self._data(dt)
+        return build_kkt(groups, lp, jcast(dt, *L), jcast(dt, s_lp)[0], Rd, self.m, kind,
                          hp=self.kkt_hp)
 
     def inverses(self, L):
@@ -564,29 +603,40 @@ class ConeSystem:
         return inverses(L, hp=self.kkt_hp)
 
     # -- matrix-free Schur operator (sparse-Schur analogue) ---------------
+    def _op_args(self, Us, s_lp, *more):
+        """(groups, lp, Us, s_lp, *more) in the dtype of the operation."""
+        dt = self._dt(*Us, s_lp, *more)
+        return (*self._data(dt), jcast(dt, *Us), *jcast(dt, s_lp, *more))
+
     def build_kkt_rhs(self, Us, s_lp, Rd, kind: str) -> KKTOut:
         """KKT RHS vectors only, M never materialized (operator mode)."""
-        return build_kkt_rhs(self.groups, self.lp, Us, s_lp, Rd, self.m, kind)
+        groups, lp, Us, s_lp = self._op_args(Us, s_lp, Rd)[:4]
+        return build_kkt_rhs(groups, lp, Us, s_lp, Rd, self.m, kind)
 
     def kkt_diag(self, Us, s_lp):
         """Exact diag(M): the Jacobi preconditioner of operator mode."""
-        return kkt_diag(self.groups, self.lp, Us, s_lp, self.m)
+        groups, lp, Us, s_lp = self._op_args(Us, s_lp)
+        return kkt_diag(groups, lp, Us, s_lp, self.m)
 
     def kkt_matvec(self, Us, s_lp, extra_diag, V):
         """M @ V ([m, k]) through the per-bucket operators."""
-        return kkt_matvec(self.groups, self.lp, Us, s_lp, extra_diag, V, self.m)
+        groups, lp, Us, s_lp, extra_diag, V = self._op_args(Us, s_lp, extra_diag, V)
+        return kkt_matvec(groups, lp, Us, s_lp, extra_diag, V, self.m)
 
     def kkt_pcg(self, Us, s_lp, extra_diag, pinv, B, abs_tol=1e-10,
                 rel_tol=1e-10, max_iter=600):
         """Jacobi-PCG solve of M X = B on the operator."""
-        return kkt_pcg(self.groups, self.lp, Us, s_lp, extra_diag, pinv, B,
+        groups, lp, Us, s_lp, extra_diag, pinv, B = self._op_args(Us, s_lp, extra_diag,
+                                                                   pinv, B)
+        return kkt_pcg(groups, lp, Us, s_lp, extra_diag, pinv, B,
                        self.m, abs_tol, rel_tol, max_iter)
 
     def kkt_pcg_chol(self, Us, s_lp, extra_diag, Linv, s, B, abs_tol=1e-10,
                      rel_tol=1e-10, max_iter=600):
         """Cholesky-preconditioned CG on the operator (stale f32 factor
         of a chunk-materialized M; see kkt_pcg_chol)."""
-        return kkt_pcg_chol(self.groups, self.lp, Us, s_lp, extra_diag, Linv,
+        groups, lp, Us, s_lp, extra_diag, s, B = self._op_args(Us, s_lp, extra_diag, s, B)
+        return kkt_pcg_chol(groups, lp, Us, s_lp, extra_diag, Linv,
                             s, B, self.m, abs_tol, rel_tol, max_iter)
 
     def kkt_rows_supported(self) -> bool:
@@ -597,13 +647,15 @@ class ConeSystem:
 
     def kkt_rows(self, Us, s_lp, bound_extra, i0: int, chunk: int):
         """Rows [i0, i0+chunk) of the full KKT matrix, [chunk, m]."""
-        return kkt_rows(self.groups, self.lp, Us, s_lp, bound_extra, i0,
+        groups, lp, Us, s_lp, bound_extra = self._op_args(Us, s_lp, bound_extra)
+        return kkt_rows(groups, lp, Us, s_lp, bound_extra, i0,
                         self.m, chunk)
 
     def kkt_full_from_rows(self, Us, s_lp, bound_extra, chunk: int = 2048):
         """The full [m, m] KKT matrix assembled from row chunks, for
         factor-once consumers (PSDP) at sizes where the temporaries of
-        the one-piece build would crowd the device."""
+        the one-piece build would crowd the device.  It is stored in the
+        cone data's dtype, as the JAX package stores it."""
         m = self.m
         chunk = min(chunk, m)
         M = torch.empty((m, m), dtype=self.dtype, device=self.device)
@@ -612,7 +664,9 @@ class ConeSystem:
         return M
 
     def interior_check(self, dC, scal, y, dEye, tau, lo, up):
-        return interior_check(self.groups, self.lp, dC, scal, y, dEye, tau,
+        dt = self._dt(y, dC, scal, dEye)
+        groups, lp = self._data(dt)
+        return interior_check(groups, lp, dC, scal, y.to(dt), dEye, tau,
                               lo, up, hp=self.dual_hp, dd=self.cone_dd)
 
     def ratio_test(self, L, s_lp, dS, ds_lp):
@@ -641,15 +695,21 @@ class ConeSystem:
         return torch.clamp(step, max=INF) if step is not None else INF
 
     def add_step_check(self, S, s_lp, dS, ds_lp, alpha):
-        S_new = tuple(Sg + alpha * dSg for Sg, dSg in zip(S, dS))
-        s_new = s_lp + alpha * ds_lp if s_lp is not None else None
+        S_new = tuple(a + alpha * b for a, b in
+                      (jlift(Sg, dSg, by=(alpha,)) for Sg, dSg in zip(S, dS)))
+        s_new = None
+        if s_lp is not None:
+            s_lp, ds_lp = jlift(s_lp, ds_lp, by=(alpha,))
+            s_new = s_lp + alpha * ds_lp
         ok, Lnew = factor(S_new, s_new, dd=self.cone_dd)
         return ok, S_new, s_new, Lnew
 
     def atx(self, X_list, x_lp):
         """A(X) over all cones."""
-        return atx(self.groups, self.lp, tuple(X_list), x_lp, self.m)
+        groups, lp = self.data_for(*X_list, x_lp)
+        return atx(groups, lp, tuple(X_list), x_lp, self.m)
 
     def ctx(self, X_list, x_lp):
         """<C, X> over all cones."""
-        return ctx(self.groups, self.lp, tuple(X_list), x_lp)
+        groups, lp = self.data_for(*X_list, x_lp)
+        return ctx(groups, lp, tuple(X_list), x_lp)

@@ -31,6 +31,7 @@ from hdsdp_tpu_torch.ops import chol as chol_ops
 from hdsdp_tpu_torch.ops import schur as schur_ops
 from hdsdp_tpu_torch.solver import cones as cone_ops
 from hdsdp_tpu_torch.utils import device
+from hdsdp_tpu_torch.utils.device import jdot, jlift
 
 # above this block dimension the min-eigenvalue check switches from exact
 # f64 eigh to f32 eigh + f64 Rayleigh refinement
@@ -311,8 +312,10 @@ def _consistent_maker_solve(ipm, maker):
     # consistency dy then comes from CG on the matrix-free operator.
     with_m = (not ipm.kkt_free and ipm.m <= ipm.params.op_materialize_cap
               and not getattr(ipm.cones, "is_row_sharded", False))
+    # the maker point in the IPM's dtype, as the JAX package casts it: a
+    # float32 solve checks in float32 (its y went float64 in phase B)
     ok, Us, sbar_lp, M, d_bound, rhs = _maker_kkt(
-        ipm.cones, ipm.b, maker.mu, maker.y, ipm.perturb,
+        ipm.cones, ipm.b, maker.mu, maker.y.to(ipm.dtype), ipm.perturb,
         ipm.bound_lo, ipm.bound_up, ipm.m, bool(ipm.cones.kkt_hp), with_m,
     )
     if not ok:
@@ -325,14 +328,19 @@ def _consistent_maker_solve(ipm, maker):
 
 
 def _recover(cones, Us, sbar_lp, mk_mu, dy, hp: bool):
-    W, w_lp = cone_ops.assemble(cones.groups, cones.lp, 0.0, 1.0, dy, 0.0, hp=hp)
+    """X = mu (U + U W U) per group, W = A'dy (and the LP primal), in the
+    dtype the JAX package's promotion gives it (``mk_mu`` a host scalar
+    or a 0-dim tensor of the check's dtype)."""
+    groups, lp = cones.data_for(dy)
+    W, w_lp = cone_ops.assemble(groups, lp, 0.0, 1.0, dy, 0.0, hp=hp)
     X_list = []
     for U, Wg in zip(Us, W):
-        X = mk_mu * (U + _uwu(U, Wg))
+        U, Wg = jlift(U, Wg)
+        X = jlift(U + _uwu(U, Wg), by=(mk_mu,))[0] * mk_mu
         X_list.append(0.5 * (X + X.mT))
     x_lp = None
     if cones.has_lp:
-        x_lp = mk_mu * (sbar_lp + w_lp) / (sbar_lp * sbar_lp)
+        x_lp = jlift(sbar_lp + w_lp, by=(mk_mu,))[0] * mk_mu / (sbar_lp * sbar_lp)
     return X_list, x_lp
 
 
@@ -403,7 +411,7 @@ def _min_eval(X_list, x_lp) -> float:
     min_eval = np.inf
     for Xg in X_list:
         me = float(_batch_min_eval(Xg))
-        if Xg.shape[-1] >= _LANCZOS_EIG_DIM:
+        if Xg.shape[-1] >= _LANCZOS_EIG_DIM and Xg.dtype == torch.float64:
             # the estimate can only under-report a violation: the
             # try-Cholesky certificate decides
             for i in range(Xg.shape[0]):
@@ -420,23 +428,28 @@ def _dimacs_errors(ipm, maker) -> Optional[np.ndarray]:
     if ipm.psdp is not None:  # set only by a refinement that returned its X
         # PSDP-refined primal: the errors of the explicit X
         X_list, x_lp = ipm.psdp.get_primal()
+        y = ipm.y
     else:
         out = _consistent_maker_solve(ipm, maker)
         if out is None:
             return None
         Us, sbar_lp, dy = out
-        # the check assembles in plain f64, as the JAX package's does
-        X_list, x_lp = _recover(cones, Us, sbar_lp, maker.mu, dy, hp=False)
-    S, s_lp = cone_ops.assemble(
-        cones.groups, cones.lp, 1.0, -1.0, ipm.y, -ipm.Rd + ipm.perturb
-    )
-    d_obj = float(ipm.b @ ipm.y)
+        # the check assembles without the Ozaki products, as the JAX
+        # package's does; it takes mu and y in the IPM's dtype (a float32
+        # solve's check is float32 through)
+        mk_mu = torch.tensor(maker.mu, dtype=ipm.dtype, device=ipm.device)
+        X_list, x_lp = _recover(cones, Us, sbar_lp, mk_mu, dy, hp=False)
+        y = ipm.y.to(ipm.dtype)
+    groups, lp = cones.data_for(y, ipm.Rd, ipm.perturb)
+    y, = jlift(y, by=(ipm.Rd, ipm.perturb))
+    S, s_lp = cone_ops.assemble(groups, lp, 1.0, -1.0, y, -ipm.Rd + ipm.perturb)
+    d_obj = float(jdot(ipm.b, y))
     ax = cones.atx(X_list, x_lp)
     p_obj = float(cones.ctx(X_list, x_lp))
     compl = 0.0
     for Xg, Sg in zip(X_list, S):
         compl += float(torch.sum(Xg * Sg))
     if x_lp is not None:
-        compl += float(x_lp @ s_lp)
+        compl += float(jdot(x_lp, s_lp))
     p_inf_norm = float(torch.linalg.vector_norm(ax - ipm.b))
     return _errors_from_parts(ipm, p_obj, d_obj, compl, _min_eval(X_list, x_lp), p_inf_norm)

@@ -149,6 +149,10 @@ class Cones(_Tree):
     cfg: Config
     n_reads: int = 0
     fleet: int = 0
+    # kkt_mp: Schur factors, and those that took the f64 ladder (per
+    # instance of a fleet: numpy int arrays)
+    mp_factors: object = 0
+    mp_f64: object = 0
     # KKT builds by kind (build_kkt calls): the fleet's accounting
     n_builds: dict = dataclasses.field(default_factory=dict)
 
@@ -472,22 +476,34 @@ def _factor_m_mp(c: Cones, M):
     """f32 equilibrated factor + probe; f64 ladder only when the probe
     shows refinement cannot reach f64 accuracy (kappa ~> 1/eps_f32).
 
+    ``need64`` is decided per instance of a fleet, as ``jax.vmap`` decides
+    the JAX package's traced flag: the f64 ladder runs for the instances
+    that need it (``_narrow``), and their count is kept per instance in
+    ``Cones.mp_f64`` (of ``Cones.mp_factors`` factors).
+
     The TPU-gated tiers ride in the factor tuple, so that solve_m applies
     the factor the way it was built: ``inv`` (ops.cg.use_inverted_precond)
     stores L^-1, ``hp`` (ops.cg.use_hp_residual) takes the residuals
     through the Ozaki matmul and defers the f64 fallback factor to the
     solve that needs it (no [m, m] f64 buffer on the common f32 path)."""
-    m = M.shape[0]
+    m = M.shape[-1]
     inv = cg_ops.use_inverted_precond(m)
     hp = cg_ops.use_hp_residual(m)
     L32, s, ok32 = cg_ops._equilibrated_factor(M, f32=True, inv=inv)
-    L32 = torch.where(ok32, L32, torch.eye(m, dtype=torch.float32, device=M.device))
-    probe = torch.ones((m, 1), dtype=M.dtype, device=M.device)
+    L32 = _where(ok32, L32, torch.eye(m, dtype=torch.float32, device=M.device))
+    probe = torch.ones(M.shape[:-1] + (1,), dtype=M.dtype, device=M.device)
     _, p_status, _ = cg_ops.refine_solve(M, L32, s, probe, max_iter=20,
-                                         pre_inverted=inv, hp_residual=hp)
-    need64 = not _read(c, ok32) or p_status != cg_ops.STATUS_OK
-    if need64 and not hp:
-        Lf64, ok = _factor_m_f64(c, M)
+                                         pre_inverted=inv, hp_residual=hp,
+                                         live=c.live if c.fleet else None)
+    need64 = np.logical_or(np.logical_not(_read(c, ok32)), p_status != cg_ops.STATUS_OK)
+    if not c.fleet:
+        need64 = bool(need64)
+    c.mp_factors = c.mp_factors + np.asarray(c.live, dtype=int)
+    c.mp_f64 = c.mp_f64 + np.asarray(np.logical_and(c.live, need64), dtype=int)
+    if _any(c, need64) and not hp:
+        with _narrow(c, need64):
+            Lf64, ok = _factor_m_f64(c, M)
+        ok = _select(c, need64, ok, c.yes)
     else:
         Lf64, ok = None, c.yes
     return (M, L32, s, Lf64, need64, inv, hp), ok
@@ -500,18 +516,28 @@ def factor_m(c: Cones, M):
 
 
 def solve_m(c: Cones, Lm, rhs):
+    """Solve against factor_m's factor: rhs [m] or [m, k] (a fleet's with
+    its leading axis).  Under kkt_mp, per instance: the f64 factor's solve
+    where ``need64`` holds, the refinement elsewhere (``_cond``)."""
     if not c.cfg.mp:
         return chol_ops.chol_solve(Lm, rhs)
     M, L32, s, Lf64, need64, inv, hp = Lm
-    rhs2 = rhs[:, None] if rhs.ndim == 1 else rhs
-    if need64:
-        if Lf64 is None:  # deferred f64 tier (hp sizes)
-            Lf64, _ = _factor_m_f64(c, M)
-        X = chol_ops.chol_solve(Lf64, rhs2)
-    else:
-        X, _, _ = cg_ops.refine_solve(M, L32, s, rhs2, max_iter=30,
-                                      pre_inverted=inv, hp_residual=hp)
-    return X[:, 0] if rhs.ndim == 1 else X
+    vec = rhs.ndim == M.ndim - 1
+    rhs2 = rhs[..., None] if vec else rhs
+
+    def direct():
+        L = Lf64
+        if L is None:  # deferred f64 tier (hp sizes)
+            L, _ = _factor_m_f64(c, M)
+        return chol_ops.chol_solve(L, rhs2)
+
+    def refine():
+        X, _, _ = cg_ops.refine_solve(M, L32, s, rhs2, max_iter=30, pre_inverted=inv,
+                                      hp_residual=hp, live=c.live if c.fleet else None)
+        return X
+
+    X = _cond(c, need64, direct, refine)
+    return X[..., 0] if vec else X
 
 
 # ----------------------------------------------------------------------
@@ -1678,6 +1704,9 @@ def solve_fused(ipm, d_only: bool = False, mode: str = "phase"):
         return _solve_fused(ipm, c, d_only, mode == "phase")
     finally:
         ipm._count("fused_host_reads", c.n_reads)
+        if c.cfg.mp:
+            ipm._count("mp_factors", int(c.mp_factors))
+            ipm._count("mp_f64_factors", int(c.mp_f64))
 
 
 def _solve_fused(ipm, c: Cones, d_only: bool, whole: bool):

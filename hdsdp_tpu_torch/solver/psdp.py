@@ -30,6 +30,7 @@ import torch
 from hdsdp_tpu_torch.ops import chol as chol_ops
 from hdsdp_tpu_torch.ops import ratio as ratio_ops
 from hdsdp_tpu_torch.ops import schur as schur_ops
+from hdsdp_tpu_torch.utils.device import jdot, jlift
 
 
 def _build_primal_kkt(groups, X_list, m, hp=False):
@@ -41,7 +42,9 @@ def _build_primal_kkt(groups, X_list, m, hp=False):
 
 
 def _xsx(X, S):
-    """Batched congruence X S X (ref fds_trimultiply)."""
+    """Batched congruence X S X (ref fds_trimultiply), in the wider
+    dtype of the two (Params.dtype)."""
+    X, S = jlift(X, S)
     return X @ S @ X
 
 
@@ -123,7 +126,6 @@ class PSDPRefiner:
             if not bool(ok):
                 return False
 
-        groups = ipm.cones.groups
         m = ipm.m
         b = ipm.b
         mu = ipm.mu
@@ -212,6 +214,8 @@ class PSDPRefiner:
                     tuple(Xscal), None, ipm._zeros_m(), chunk=p.op_precond_chunk
                 )
             else:
+                # the cone data in X's dtype (a float32 solve's X is float64)
+                groups = ipm.cones.data_for(*Xscal)[0]
                 M = _build_primal_kkt(groups, Xscal, m, hp=bool(ipm.cones.kkt_hp))
             # regularize (ref HKKTRegularize with 1e-16 coefficient)
             reg = 1e-16 * float(torch.max(torch.diagonal(M))) + 1e-300
@@ -278,16 +282,17 @@ class PSDPRefiner:
             p_inf_norm = float(torch.linalg.vector_norm(rp))
 
             # rhs = A(XSX/mu - X) + rp  (ref :240-255)
-            buf = [_xsx(Xg, Sg) / mu - Xg for Xg, Sg in zip(X, ipm.S)]
+            buf = [jlift(_xsx(Xg, Sg), by=(mu,))[0] / mu - Xg for Xg, Sg in zip(X, ipm.S)]
             rhs = ipm.cones.atx(buf, None) + rp
-            dy = solve_primal_kkt(rhs) * mu
+            dy = jlift(solve_primal_kkt(rhs), by=(mu,))[0] * mu
 
             # dual ratio test; dS = -A'dy (Rd = 0)
             dS, _ = ipm.cones.assemble(0.0, -1.0, dy, 0.0)
             d_step = float(ipm.cones.ratio_test(ipm.L, None, dS, None))
 
             # dX = X - XSX/mu - Xscal dS Xscal / mu  (ref :283-300)
-            dX = [-bg - _xsx(Xs, dSg) / mu for bg, Xs, dSg in zip(buf, Xscal, dS)]
+            dX = [-bg - jlift(_xsx(Xs, dSg), by=(mu,))[0] / mu
+                  for bg, Xs, dSg in zip(buf, Xscal, dS)]
 
             # primal ratio test: X + a dX >= 0 (Lanczos at size, exact
             # eigh for small blocks)
@@ -312,7 +317,7 @@ class PSDPRefiner:
                 return fail("stepped X not PSD")
 
             # objective + barrier update (ref :352-383)
-            d_obj = float(b @ ipm.y)
+            d_obj = float(jdot(b, ipm.y))
             p_obj = float(ipm.cones.ctx(X, None))
             compl = float(compl_dev)
             if p_obj < d_obj:

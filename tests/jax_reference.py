@@ -25,7 +25,8 @@ hour on 8 cores.
 JAX package's ``solve_batch`` and the instance's overrides, and prints
 one JSON line: each member's status, iterations and objective, and which
 members its fleet finished and which it re-solved solo (the fleets of
-``chip_smoke.py``'s ``[batch]`` phase).
+``chip_smoke.py``'s ``[batch]`` phase); ``--kw`` adds overrides to the
+fleet's too (``--batch 4 --kw '{"kkt_mp": "on"}'``).
 
 ``--mesh N`` solves on the JAX package's mesh path,
 ``HDSDPSolver(prob, mesh=make_mesh(N))``, over N virtual CPU devices
@@ -117,10 +118,11 @@ def main(name: str, fused, seed=None, mesh=None, kw=None, rows=0) -> int:
     return 0
 
 
-def main_batch(name: str, n: int) -> int:
+def main_batch(name: str, n: int, kw=None) -> int:
     from hdsdp_tpu.solver import batch
 
     gen, kwargs, overrides = INSTANCES[name]
+    overrides = dict(overrides, **(kw or {}))
     probs = [SDPProblem.from_sdpa(getattr(synthetic, gen)(**dict(kwargs, seed=s)))
              for s in range(n)]
     resolved = []
@@ -184,5 +186,5 @@ if __name__ == "__main__":
     if args.lp:
         sys.exit(main_lp(args.lp))
     if args.batch:
-        sys.exit(main_batch(args.name, args.batch))
+        sys.exit(main_batch(args.name, args.batch, args.kw))
     sys.exit(main(args.name, FUSED[args.fused], args.seed, args.mesh, args.kw, args.rows))

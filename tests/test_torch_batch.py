@@ -216,12 +216,6 @@ def test_cuda_default_raises_without_a_card():
         solve_batch([SDPProblem.from_sdpa(maxcut_sdpa(n=10, seed=0))])
 
 
-def test_kkt_mp_is_refused_for_a_fleet():
-    probs = [SDPProblem.from_sdpa(maxcut_sdpa(n=10, seed=s)) for s in range(2)]
-    with pytest.raises(NotImplementedError):
-        solve_batch(probs, device="cpu", kkt_mp="on")
-
-
 # -- the fleet's cone functions against each instance alone -----------------
 
 FAMILIES = {

@@ -10,7 +10,9 @@ virtual devices).  Tolerances: the Schur matrix gathered from the shards
 the distributed factor 1e-12, its solves 1e-10; the sharded PCG 1e-10
 with the same step count; the sharded operator matvec 1e-12 against the
 port's single-device one; end to end status, iterations +-1 and d_obj
-1e-7 relative, with every rank's y bit-equal."""
+1e-7 relative (1e-6 for the float32 solve), with every rank's y
+bit-equal; kkt_fp="dd" bit for bit the default run, and one rank's DD
+cone factor bit for bit the single-device one."""
 
 import threading
 
@@ -87,7 +89,26 @@ E2E_CASES = {
     "theta40_free": (THETA40, dict(kkt_mode="free")),
     # three equal blocks in one group: the slot-partitioned system
     "control": (("control_sdpa", dict(k=5, n_sys=2, seed=0)), {}),
+    # cone_fp="dd" is honoured on a mesh (below n = 512 it sets the flag
+    # and the factor stays f64, in both packages)
+    "random_cone_dd": (("random_sdpa", dict(m=20, block_dims=[10, 6], n_lp=4, seed=5)),
+                       dict(cone_fp="dd")),
+    # dtype="float32" on the mesh (the row-sharded system), promoted as
+    # the JAX package promotes it (tests/test_torch_f32.py)
+    "maxcut_f32": (("maxcut_sdpa", dict(n=20, seed=0)), dict(dtype="float32")),
 }
+# d_obj of a float32 solve is a float32 DIMACS evaluation: held to 1e-6
+# (tests/test_torch_f32.py), every other case to 1e-7
+D_OBJ_REL = {"maxcut_f32": 1e-6}
+# kkt_fp="dd" on a mesh changes nothing (the Schur factor is the
+# distributed Cholesky, also in PSDP): key -> (the E2E case it must repeat
+# bit for bit, overrides)
+SAME_AS_CASES = {
+    "random_kkt_dd": ("random", dict(kkt_fp="dd")),
+    "theta40_kkt_dd": ("theta40", dict(kkt_fp="dd")),
+}
+# one rank's DD cone factor of a single 512 x 512 block
+CONE_FACTOR = ("maxcut_sdpa", dict(n=512, seed=3))
 
 
 def _dchol_inputs():
@@ -117,6 +138,10 @@ def _port_calls():
         if callable(gen):
             gen, kw = gen(_TorchSDPA), {}
         calls.append(("solve", dict(gen=gen, kwargs=kw, overrides=over)))
+    for base, over in SAME_AS_CASES.values():
+        (gen, kw), base_over = E2E_CASES[base]
+        calls.append(("solve", dict(gen=gen, kwargs=kw, overrides=dict(base_over, **over))))
+    calls.append(("cone_factor", dict(gen=CONE_FACTOR[0], kwargs=CONE_FACTOR[1])))
     calls.append(("dryrun", {}))
     calls.append(("collectives", {}))
     return calls
@@ -153,6 +178,9 @@ def port():
             res["matvec", key] = next(out)
         for key in E2E_CASES:
             res["solve", key] = next(out)
+        for key in SAME_AS_CASES:
+            res["solve", key] = next(out)
+        res["cone_factor"] = next(out)
         res["dryrun"] = next(out)
         res["collectives"] = next(out)
         return res
@@ -283,7 +311,7 @@ def test_end_to_end_matches_jax_mesh(port, mesh, key):
     assert got["size"] == NDEV and got["stats"]["fused"] is False
     assert got["status"] == rj.status
     assert abs(got["iterations"] - rj.n_iters) <= 1
-    assert abs(got["d_obj"] - rj.d_obj) <= 1e-7 * max(abs(rj.d_obj), 1.0)
+    assert abs(got["d_obj"] - rj.d_obj) <= D_OBJ_REL.get(key, 1e-7) * max(abs(rj.d_obj), 1.0)
     assert got["cones"] == type(js.ipm.cones).__name__
     if key == "hsd":
         assert got["which_method"] == js.ipm.which_method == "hsd"
@@ -296,6 +324,35 @@ def test_end_to_end_matches_jax_mesh(port, mesh, key):
     if key == "control":
         assert got["cones"] == "ShardedConeSystem"
         assert got["counts"].get("reduce_scatter", 0) > 0
+    if key == "random_cone_dd":
+        assert js.ipm.cones.cone_dd
+    if key == "maxcut_f32":
+        assert got["y"].dtype == np.asarray(js.ipm.y).dtype == np.float64
+
+
+@pytest.mark.parametrize("key", sorted(SAME_AS_CASES))
+def test_kkt_dd_on_a_mesh_changes_nothing(port, key):
+    """kkt_fp="dd" on a mesh is inert, as in the JAX package (its mesh
+    systems are row-sharded, so factor_kkt never reaches _direct_factor,
+    the only reader of _use_dd; theta40 also runs PSDP's factors there):
+    the solve repeats the default mesh run's iterates bit for bit."""
+    base = port()["solve", SAME_AS_CASES[key][0]]
+    got = port()["solve", key]
+    assert got["same_y"] and got["status"] == base["status"]
+    assert got["iterations"] == base["iterations"]
+    assert got["d_obj"] == base["d_obj"] and got["p_obj"] == base["p_obj"]
+    np.testing.assert_array_equal(got["y"], base["y"])
+    assert got["log_rows"] == base["log_rows"]
+    assert got["psdp"] == base["psdp"]
+
+
+def test_dd_cone_factor_on_a_mesh_rank(port):
+    """cone_fp="dd" reaches the DD blocked Cholesky on every rank: the
+    row-sharded system's factor of a single 512 x 512 block is bit for
+    bit the single-device ConeSystem's, and it is not the f64 Cholesky."""
+    got = port()["cone_factor"]
+    assert got["n"] == 512 and got["ok"]
+    assert got["same"] and got["differs_from_f64"]
 
 
 def test_dryrun(port):

@@ -276,24 +276,18 @@ def test_cone_system_layout_argument():
 
 
 @pytest.mark.parametrize("override,what", [
-    (dict(dtype="float32"), "dtype"),
     (dict(fused="phase", cone_fp="dd"), "ddchol"),
     (dict(cone_fp="dd"), "ddchol"),
     (dict(kkt_fp="dd", fused=False), "ddchol"),
 ])
 def test_unported_options_raise(override, what):
-    """dtype="float32" is not ported and raises.  The double-single options
-    ("ddchol": cone_fp / kkt_fp = "dd"), which raised until ops.ddchol was
-    ported, now solve and must match the JAX package's run with the same
+    """The double-single options ("ddchol": cone_fp / kkt_fp = "dd"), which
+    raised until ops.ddchol was ported, now solve and must match the JAX package's run with the same
     overrides: status, iterations +-1, d_obj 1e-7.  At this size (one 8 x 8
     block, m = 9) cone_fp="dd" sets the flag and leaves the factor in f64
     (the DD cone factor starts at n = 512, as in the JAX package), and
     kkt_fp="dd" on the host loop factors every Schur system with ddchol."""
     prob = TProblem.from_sdpa(tsyn.gpp_sdpa(n=8, seed=0))
-    if what == "dtype":
-        with pytest.raises(NotImplementedError, match=what):
-            TSolver(prob, device="cpu", verbose=False, **override).optimize()
-        return
     rj = JSolver(JProblem.from_sdpa(jsyn.gpp_sdpa(n=8, seed=0)), verbose=False,
                  **override).optimize()
     # one torch thread: the DD panel factor is thousands of tiny calls, which
@@ -310,17 +304,6 @@ def test_unported_options_raise(override, what):
     assert rt.status == rj.status == "PRIMAL_DUAL_OPTIMAL"
     assert abs(rt.n_iters - rj.n_iters) <= 1
     assert rt.d_obj == pytest.approx(rj.d_obj, rel=1e-7)
-
-
-def test_dd_on_a_mesh_raises():
-    """The double-single options are not ported to the mesh path."""
-    from hdsdp_tpu_torch.parallel.mesh import Mesh
-
-    prob = TProblem.from_sdpa(tsyn.gpp_sdpa(n=8, seed=0))
-    mesh = Mesh.__new__(Mesh)
-    mesh.device = torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        talgo.DualIPM(prob, Params(verbose=False, cone_fp="dd"), device="cpu", mesh=mesh)
 
 
 def test_kkt_hp_auto_is_off():
