@@ -28,6 +28,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from hdsdp_tpu_torch.utils import profile
+
 TINY_ENTRY = 1e-12
 
 
@@ -111,7 +113,11 @@ def read_sdpa(path_or_buf) -> SDPAData:
     built with g++ on first use); a buffer (anything with ``read``) by the
     Python parser below.  Both give the same arrays, and both raise on a
     malformed file: neither falls back to the other."""
+    with profile.span("read_sdpa"):
+        return _read_sdpa(path_or_buf)
 
+
+def _read_sdpa(path_or_buf) -> SDPAData:
     if not hasattr(path_or_buf, "read"):
         from hdsdp_tpu_torch.native import sdpa_native
 

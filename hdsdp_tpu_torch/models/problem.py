@@ -34,6 +34,7 @@ from hdsdp_tpu_torch.models.coeffs import (
     CoeffInfo,
     analyze_block,
 )
+from hdsdp_tpu_torch.utils import profile
 
 
 @dataclass
@@ -124,31 +125,34 @@ class SDPProblem:
     # ------------------------------------------------------------------
     @staticmethod
     def from_sdpa(data: SDPAData, rank_cap: int = 8, max_eig_support: int = 2048) -> "SDPProblem":
-        m = data.m
-        prob = SDPProblem(m=m, b=np.asarray(data.b, dtype=np.float64).copy())
-        prob.block_dims = list(data.block_dims)
+        with profile.span("presolve"):
+            m = data.m
+            prob = SDPProblem(m=m, b=np.asarray(data.b, dtype=np.float64).copy())
+            prob.block_dims = list(data.block_dims)
 
-        all_infos: List[List[CoeffInfo]] = []
-        for blk in data.blocks:
-            infos = analyze_block(
-                blk.dim, m, blk.con, blk.row, blk.col, blk.val, rank_cap, max_eig_support
-            )
-            all_infos.append(infos)
-        prob.block_infos = all_infos
+            all_infos: List[List[CoeffInfo]] = []
+            for blk in data.blocks:
+                with profile.span("analyze"):
+                    infos = analyze_block(
+                        blk.dim, m, blk.con, blk.row, blk.col, blk.val, rank_cap,
+                        max_eig_support
+                    )
+                all_infos.append(infos)
+            prob.block_infos = all_infos
 
-        # group blocks by dim
-        by_dim: Dict[int, List[int]] = {}
-        for ib, d in enumerate(data.block_dims):
-            by_dim.setdefault(d, []).append(ib)
+            # group blocks by dim
+            by_dim: Dict[int, List[int]] = {}
+            for ib, d in enumerate(data.block_dims):
+                by_dim.setdefault(d, []).append(ib)
 
-        for dim, block_ids in sorted(by_dim.items()):
-            prob.groups.append(_build_group(dim, block_ids, all_infos, m))
+            for dim, block_ids in sorted(by_dim.items()):
+                prob.groups.append(_build_group(dim, block_ids, all_infos, m))
 
-        if data.lp is not None:
-            prob.lp = _build_lp(data, m)
+            if data.lp is not None:
+                prob.lp = _build_lp(data, m)
 
-        prob.features = _collect_features(prob)
-        return prob
+            prob.features = _collect_features(prob)
+            return prob
 
     # ------------------------------------------------------------------
     @staticmethod

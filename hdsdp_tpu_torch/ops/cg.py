@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from hdsdp_tpu_torch.ops import chol as chol_ops
-from hdsdp_tpu_torch.utils import device
+from hdsdp_tpu_torch.utils import device, profile
 
 STATUS_OK = 0
 STATUS_MAXITER = 1
@@ -65,6 +65,7 @@ def pcg(M, rhs, precond, max_iter: int, restart_freq: int = 20,
             return chol_ops.chol_solve(precond, v)
         return v / precond
 
+    profile.count("host_reads")
     rhs_norm = float(torch.linalg.vector_norm(rhs))
     tol = max(min(abs_tol, rhs_norm * rel_tol), 0.1 * abs_tol)
 
@@ -89,6 +90,7 @@ def pcg(M, rhs, precond, max_iter: int, restart_freq: int = 20,
             z = apply_p(r)
             d = z + ((r @ z) / rz) * d
             Md = M @ d
+        profile.count("host_reads")
         rn = float(torch.linalg.vector_norm(r))  # host read, one per step
         if rn != rn:
             status = STATUS_NUMERICAL
@@ -172,11 +174,13 @@ def factor_scaled_f32(Ms: torch.Tensor):
     overflows the explicit inverse where a triangular solve would have
     limped through)."""
     L, info = torch.linalg.cholesky_ex(Ms)
+    profile.count("host_reads")
     if int(info) != 0:
         return None, False
     eye = torch.eye(Ms.shape[0], dtype=L.dtype, device=L.device)
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)
     del L, eye
+    profile.count("host_reads")
     if not bool(torch.isfinite(Linv).all()):
         return None, False
     return Linv, True
@@ -249,10 +253,12 @@ def refine_solve(M, L, s, B, max_iter: int = 40, abs_tol: float = 1e-10,
     def colnorm(A):
         return torch.linalg.vector_norm(A, dim=-2).amax(-1)
 
+    profile.count("host_reads")
     bnorm, mnorm = (torch.stack([colnorm(B), torch.sum(torch.abs(M), dim=-1).amax(-1)])
                     .cpu().numpy())
 
     def state(X, R):
+        profile.count("host_reads")
         rn, xn = torch.stack([colnorm(R), colnorm(X)]).cpu().numpy()
         tol = np.maximum(np.maximum(abs_tol, rel_tol * bnorm),
                          16.0 * eps_res * (bnorm + mnorm * xn))
@@ -338,6 +344,7 @@ class AdaptiveCG:
             fac = ddchol.factor(M)
             self.n_factor += 1
             self._fresh = True
+            profile.count("host_reads")
             if not bool(ddchol.ok(fac)):
                 self.chol_fac = None
                 self.history.append(("factor_dd", "fail", time.time() - t0))
@@ -350,6 +357,7 @@ class AdaptiveCG:
         self.n_factor += 1
         self._fresh = True
         kind = "factor32" if f32 else "factor64"
+        profile.count("host_reads")
         if not bool(ok):
             self.chol_fac = None
             self.history.append((kind, "fail", time.time() - t0))

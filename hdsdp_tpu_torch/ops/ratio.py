@@ -26,13 +26,16 @@ from __future__ import annotations
 import torch
 
 from hdsdp_tpu_torch.ops.chol import congruence
+from hdsdp_tpu_torch.utils import profile
 
 INF_STEP = 1e30
 
 
 def _eig(fn, T, nan_safe: bool):
     """fn(T) for fn in (eigh, eigvalsh); with nan_safe, a matrix holding
-    a non-finite entry gets NaN outputs instead of an error."""
+    a non-finite entry gets NaN outputs instead of an error.  On CUDA the
+    call waits for the device to check ``info``: a host read."""
+    profile.count("host_reads")
     if not nan_safe:
         return fn(T)
     bad = ~torch.isfinite(T).all(dim=-1).all(dim=-1)
@@ -154,6 +157,7 @@ def lanczos_ratio_test_adaptive(L, dS, v0, krylov: int = 30, check_freq: int = 3
         if i % check_freq == 0 or i >= k:
             w_eigs, Y = _eig(torch.linalg.eigh, T[..., :i, :i], nan_safe)
             resi = torch.abs(T[..., i, i - 1] * Y[..., i - 1, -1])
+            profile.count("host_reads")
             if bool(torch.max(resi) < 1e-04):  # host sync
                 break
     return _bound_from_pairs(L, dS, V[..., :i, :], w_eigs, Y)

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from hdsdp_tpu_torch.ops import hpmm
+from hdsdp_tpu_torch.utils import profile
 
 
 class GroupArrays(NamedTuple):
@@ -229,6 +230,7 @@ def with_tables(ga: GroupArrays, m: int) -> GroupArrays:
         return torch.as_tensor(a, device=dev)
 
     def host(t):
+        profile.count("host_reads")
         return t.cpu().numpy()
 
     kind = bucket(ga)

@@ -75,7 +75,7 @@ from hdsdp_tpu_torch.ops.cg import AdaptiveCG, factor_scaled_f32
 from hdsdp_tpu_torch.ops.ratio import vector_ratio_test
 from hdsdp_tpu_torch.solver.cones import ConeSystem, chunk_starts
 from hdsdp_tpu_torch.solver.params import Params, adjust_params
-from hdsdp_tpu_torch.utils import device
+from hdsdp_tpu_torch.utils import device, profile
 from hdsdp_tpu_torch.utils.device import jdot, jdtype, jlift, working_dtype
 from hdsdp_tpu_torch.utils.log import Logger
 
@@ -100,6 +100,15 @@ class Maker:
     mu: float = -1.0
     y: Optional[torch.Tensor] = None
     dy: Optional[torch.Tensor] = None
+
+
+def _chol_ok(L, info) -> bool:
+    """A Cholesky factor succeeded and is finite (one or two host reads)."""
+    profile.count("host_reads")
+    if int(info) != 0:
+        return False
+    profile.count("host_reads")
+    return bool(torch.isfinite(L).all())
 
 
 def choose_fused_mode(m: int, n_max: int, n_sum: int, kkt_free: bool, params: Params,
@@ -343,11 +352,13 @@ class DualIPM:
     # ------------------------------------------------------------------
     def check_is_interior(self, tau, y, with_bound=True) -> bool:
         """Assemble S at (tau, y) with the current Rd/perturb and factor."""
-        S, s_lp, L, sl, su, flags = self.cones.interior_check(
-            tau, -1.0, y, -self.Rd + self.perturb, tau,
-            self.bound_lo, self.bound_up,
-        )
-        ok, bound_ok = flags.tolist()  # one host sync for both flags
+        with profile.span("check_interior"):
+            S, s_lp, L, sl, su, flags = self.cones.interior_check(
+                tau, -1.0, y, -self.Rd + self.perturb, tau,
+                self.bound_lo, self.bound_up,
+            )
+            profile.count("host_reads")
+            ok, bound_ok = flags.tolist()  # one host sync for both flags
         if ok:
             self.S, self.s_lp, self.L = S, s_lp, L
         interior = ok
@@ -461,14 +472,15 @@ class DualIPM:
         tuple (the direct analogue of the CG -> LDL switch, ref
         hdsdp_linsolver.c:1827-1857)."""
         L, info = torch.linalg.cholesky_ex(M)
-        if int(info) == 0 and bool(torch.isfinite(L).all()):
+        if _chol_ok(L, info):
             return ("chol", L)
+        profile.count("host_reads")
         base = float(torch.max(torch.diagonal(M))) * 1e-14 + 1e-300
         eye = self._eye(M.shape[0])
         for k in range(6):
             reg = base * (10.0 ** (2 * k))
             L, info = torch.linalg.cholesky_ex(M + reg * eye)
-            if int(info) == 0 and bool(torch.isfinite(L).all()):
+            if _chol_ok(L, info):
                 return ("chol", L)
         return ("lu", torch.linalg.lu_factor(M))
 

@@ -39,7 +39,8 @@ from hdsdp_tpu_torch.models.problem import SDPProblem
 from hdsdp_tpu_torch.ops import ddchol, hpmm
 from hdsdp_tpu_torch.solver import algo, dimacs, fused
 from hdsdp_tpu_torch.solver.params import Params
-from hdsdp_tpu_torch.solver.solver import HDSDPSolver, Result
+from hdsdp_tpu_torch.solver.solver import HDSDPSolver, Result, _host
+from hdsdp_tpu_torch.utils import profile
 from hdsdp_tpu_torch.utils.device import resolve_device
 
 
@@ -69,43 +70,50 @@ def solve_batch(probs: Sequence[SDPProblem], device="cuda",
     its Schur factor on its own (``fused._factor_m_mp``), as under the JAX
     package's vmap; ``stats["mp_f64_factors"]`` counts them per instance
     (of ``stats["mp_factors"]``)."""
-    t0 = time.time()
     if not probs:
         return []
+    with profile.span("solve"):
+        return _solve_batch(probs, device, param_overrides)
+
+
+def _solve_batch(probs, device, param_overrides) -> List[Result]:
+    t0 = time.time()
     dev = resolve_device(device)
     param_overrides.setdefault("verbose", False)
     algo.refuse_f32_fused(Params(**param_overrides))
-    ipms = [algo.DualIPM(prob, Params(**param_overrides), device=dev) for prob in probs]
-    if any(_shape_key(ipm) != _shape_key(ipms[0]) for ipm in ipms):
-        raise ValueError(
-            "solve_batch needs structurally identical instances "
-            "(same m and bucketed cone shapes); solve mixed shapes solo"
-        )
-    p0 = ipms[0].params
-    cfg = fused._config_from_ipm(ipms[0])
 
     def solo(i: int, why: str) -> Result:
         r = HDSDPSolver(probs[i], device=dev, **param_overrides).optimize()
         r.stats.update(batch_solo=1, batch_exit=why)
         return r
 
-    # ---- Phase A prologue per instance (mirrors solve_fused)
-    live = []
-    results: List[Result] = [None] * len(probs)  # type: ignore[list-item]
-    allow_resets = set()
-    for i, ipm in enumerate(ipms):
-        ipm.psdp = None
-        ipm.which_method = "infeas"
-        f = ipm.f
-        allow_resets.add(not (f.many_cones or f.implied_trace or f.very_dense))
-        ipm.set_start("infeas", False)
-        if not ipm.check_is_interior(ipm.tau, ipm.y):
-            ipm.reset_start()
+    with profile.span("ipm_setup"):
+        ipms = [algo.DualIPM(prob, Params(**param_overrides), device=dev) for prob in probs]
+        if any(_shape_key(ipm) != _shape_key(ipms[0]) for ipm in ipms):
+            raise ValueError(
+                "solve_batch needs structurally identical instances "
+                "(same m and bucketed cone shapes); solve mixed shapes solo"
+            )
+        p0 = ipms[0].params
+        cfg = fused._config_from_ipm(ipms[0])
+
+        # ---- Phase A prologue per instance (mirrors solve_fused)
+        live = []
+        results: List[Result] = [None] * len(probs)  # type: ignore[list-item]
+        allow_resets = set()
+        for i, ipm in enumerate(ipms):
+            ipm.psdp = None
+            ipm.which_method = "infeas"
+            f = ipm.f
+            allow_resets.add(not (f.many_cones or f.implied_trace or f.very_dense))
+            ipm.set_start("infeas", False)
             if not ipm.check_is_interior(ipm.tau, ipm.y):
-                ipm.status = algo.NUMERICAL
-                results[i] = solo(i, "prologue: not interior")
-                continue
-        live.append(i)
+                ipm.reset_start()
+                if not ipm.check_is_interior(ipm.tau, ipm.y):
+                    ipm.status = algo.NUMERICAL
+                    results[i] = solo(i, "prologue: not interior")
+                    continue
+            live.append(i)
     if len(allow_resets) != 1:
         # feature-divergent fleet: shape-identical but policy-divergent
         # bodies; solve everything solo
@@ -145,24 +153,26 @@ def solve_batch(probs: Sequence[SDPProblem], device="cuda",
         return st
 
     # ---- Phase A, the whole fleet
-    pars_a = fused.stack_tree([fused._pars_from_ipm(ipms[i], "a") for i in live])
-    reset_rd = torch.tensor(
-        [max(-max(ipms[i].f.obj_fro_norm, 1e02) * 1e06, -1e15) for i in live],
-        dtype=ipms[0].dtype).to(dev)
-    st = drive(live, lambda c, s: fused._phase_a_body(c, pars_a, reset_rd, s, p0.corrector_a,
-                                                      allow_reset),
-               fused.stack_tree([fused._state_from_ipm(ipms[i]) for i in live]), False)
+    with profile.span("phase"):
+        pars_a = fused.stack_tree([fused._pars_from_ipm(ipms[i], "a") for i in live])
+        reset_rd = torch.tensor(
+            [max(-max(ipms[i].f.obj_fro_norm, 1e02) * 1e06, -1e15) for i in live],
+            dtype=ipms[0].dtype).to(dev)
+        st = drive(live, lambda c, s: fused._phase_a_body(c, pars_a, reset_rd, s,
+                                                          p0.corrector_a, allow_reset),
+                   fused.stack_tree([fused._state_from_ipm(ipms[i]) for i in live]), False)
 
-    go_b = []
-    for k, i in enumerate(live):
-        ipm = ipms[i]
-        fused._sync_to_ipm(fused.index_tree(st, k), ipm, fused._cones_from_ipm(ipm))
-        code = int(st.status[k])
-        if code == fused.DUAL_FEASIBLE:
-            go_b.append(i)
-        else:
-            # HSD hand-off / numerical / maxiter: solo re-solve
-            results[i] = solo(i, fused.phase_exit("A", code, ipm.n_iter))
+        go_b = []
+        for k, i in enumerate(live):
+            ipm = ipms[i]
+            fused._sync_to_ipm(fused.index_tree(st, k), ipm, fused._cones_from_ipm(ipm))
+            profile.count("host_reads")
+            code = int(st.status[k])
+            if code == fused.DUAL_FEASIBLE:
+                go_b.append(i)
+            else:
+                # HSD hand-off / numerical / maxiter: solo re-solve
+                results[i] = solo(i, fused.phase_exit("A", code, ipm.n_iter))
 
     # ---- Phase B prologue per instance (mirrors solve_fused)
     for i in go_b:
@@ -175,11 +185,13 @@ def solve_batch(probs: Sequence[SDPProblem], device="cuda",
 
     # ---- Phase B, the fleet that reached it (no PSDP hand-off, as in JAX)
     if go_b:
-        pars_b = fused.stack_tree([fused._pars_from_ipm(ipms[i], "b") for i in go_b])
-        st = drive(go_b, lambda c, s: fused._phase_b_iteration(c, pars_b, s, p0.corrector_b,
-                                                               False),
-                   fused.stack_tree([fused._state_from_ipm(ipms[i]) for i in go_b]), True)
-        codes = st.status.tolist()
+        with profile.span("phase"):
+            pars_b = fused.stack_tree([fused._pars_from_ipm(ipms[i], "b") for i in go_b])
+            st = drive(go_b, lambda c, s: fused._phase_b_iteration(c, pars_b, s,
+                                                                   p0.corrector_b, False),
+                       fused.stack_tree([fused._state_from_ipm(ipms[i]) for i in go_b]), True)
+            profile.count("host_reads")
+            codes = st.status.tolist()
     for k, i in enumerate(go_b):
         ipm = ipms[i]
         fused._sync_to_ipm(fused.index_tree(st, k), ipm, fused._cones_from_ipm(ipm))
@@ -197,7 +209,7 @@ def solve_batch(probs: Sequence[SDPProblem], device="cuda",
             p_obj=ipm.p_obj_val,
             d_obj=ipm.d_obj_val,
             gap=ipm.p_obj_val - ipm.d_obj_val,
-            y=ipm.y.detach().cpu().numpy(),
+            y=_host(ipm.y),
             dimacs=errs,
             n_iters=ipm.n_iter,
             solve_time=time.time() - t0,

@@ -29,6 +29,7 @@ from hdsdp_tpu_torch.ops import chol as chol_ops
 from hdsdp_tpu_torch.ops import ratio as ratio_ops
 from hdsdp_tpu_torch.ops import schur as schur_ops
 from hdsdp_tpu_torch.ops.schur import GroupArrays, LPArrays
+from hdsdp_tpu_torch.utils import profile
 from hdsdp_tpu_torch.utils.device import DTYPE, jcast, jdtype, jlift
 
 INF = 1e30
@@ -292,8 +293,10 @@ def pcg_body(mv, papply, B, abs_tol, rel_tol, max_iter: int,
         res = torch.linalg.vector_norm(R, dim=0)
         over = res > tol
         active = over.any()
-        if it % check_every == 0 and not bool(active):  # the host read
-            break
+        if it % check_every == 0:
+            profile.count("host_reads")
+            if not bool(active):
+                break
         n_it = n_it + active
         live = over.to(B.dtype)
         Q = mv(P)

@@ -30,7 +30,7 @@ import torch
 from hdsdp_tpu_torch.ops import chol as chol_ops
 from hdsdp_tpu_torch.ops import schur as schur_ops
 from hdsdp_tpu_torch.solver import cones as cone_ops
-from hdsdp_tpu_torch.utils import device
+from hdsdp_tpu_torch.utils import device, profile
 from hdsdp_tpu_torch.utils.device import jdot, jlift
 
 # above this block dimension the min-eigenvalue check switches from exact
@@ -67,6 +67,7 @@ def _lanczos_min_one(X: torch.Tensor, krylov: int = 64, restarts: int = 3) -> to
             alpha[i] = a
             beta[i] = b
         T = torch.diag(alpha) + torch.diag(beta[:-1], 1) + torch.diag(beta[:-1], -1)
+        profile.count("host_reads")
         _, evecs = torch.linalg.eigh(T)
         u = V[:krylov].T @ evecs[:, -1]  # Ritz vector of lambda_max(-X)
         return u / torch.linalg.vector_norm(u)
@@ -87,8 +88,10 @@ def _try_chol_ok(A: torch.Tensor) -> bool:
     if device.is_tpu():
         from hdsdp_tpu_torch.ops import ddchol
 
+        profile.count("host_reads")
         return bool(ddchol.ok(ddchol.factor(A)))
     ok, _ = chol_ops.psd_check(A)
+    profile.count("host_reads")
     return bool(ok)
 
 
@@ -98,6 +101,7 @@ def _certified_block_min_eval(X: torch.Tensor, est: float) -> float:
     first delta* whose Cholesky of X + delta* I succeeds.  ``est`` only
     tightens the report when even the widest shift fails."""
     n = X.shape[0]
+    profile.count("host_reads")
     scale = float(torch.max(torch.abs(torch.diagonal(X)))) + 1e-300
     u = 2.0 ** -45  # the JAX package's DD unit; dominates the f64 case too
     eps = 4.0 * n * u * scale
@@ -138,7 +142,9 @@ def _batch_min_eval(Xg: torch.Tensor) -> torch.Tensor:
     # size of its smallest eigenvalues, and LAPACK reads one triangle
     Xs = 0.5 * (Xg + Xg.mT)
     if n < _EXACT_EIG_DIM or Xg.dtype != torch.float64:
+        profile.count("host_reads")
         return torch.min(torch.linalg.eigvalsh(Xs))
+    profile.count("host_reads")
     _, V = torch.linalg.eigh(Xs.to(torch.float32))
     v = V[..., :, 0].to(Xg.dtype)
     v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
@@ -161,18 +167,23 @@ def _maker_kkt(cones, b, mk_mu, mk_y, perturb, lo, up, m: int, hp: bool,
     Sbar, sbar_lp = cone_ops.assemble(groups, lp, 1.0, -1.0, mk_y, perturb)
     ok, Lbar = cone_ops.factor(Sbar, sbar_lp)
 
+    profile.count("host_reads", len(Sbar))
     scale = max(
         float(torch.max(torch.abs(torch.diagonal(Sg, dim1=-2, dim2=-1))))
         for Sg in Sbar
     ) if Sbar else 0.0
     k = 0
-    while not bool(ok) and k < 5:  # the five rungs of the JAX ladder
+    while True:  # the five rungs of the JAX ladder
+        profile.count("host_reads")
+        if bool(ok) or k >= 5:
+            break
         delta = scale * 1e-14 * (10.0 ** (2 * k))
         S_shift = tuple(
             Sg + delta * torch.eye(Sg.shape[-1], dtype=Sg.dtype, device=Sg.device)
             for Sg in Sbar
         )
         ok_s, L_s = cone_ops.factor(S_shift, sbar_lp)
+        profile.count("host_reads")
         if bool(ok_s):
             Lbar = L_s
         ok = ok_s
@@ -199,6 +210,7 @@ def _maker_kkt(cones, b, mk_mu, mk_y, perturb, lo, up, m: int, hp: bool,
     if with_m:
         M = M + torch.diag(d_bound)
     rhs = b / mk_mu - (asinv + ui - li)
+    profile.count("host_reads")
     return bool(ok), Us, sbar_lp, M, d_bound, rhs
 
 
@@ -207,13 +219,17 @@ def _chol_solve_ladder(M: torch.Tensor, rhs: torch.Tensor):
     residual-correction sweep (the check-time system is factored once).
     Returns (ok, x)."""
     ok, L = chol_ops.psd_check(M)
+    profile.count("host_reads")
     if not bool(ok):
+        profile.count("host_reads")
         base = float(torch.max(torch.diagonal(M))) * 1e-14 + 1e-300
         eye = torch.eye(M.shape[0], dtype=M.dtype, device=M.device)
         for k in range(6):
             ok, L = chol_ops.psd_check(M + base * (10.0 ** (2 * k)) * eye)
+            profile.count("host_reads")
             if bool(ok):
                 break
+    profile.count("host_reads")
     if not bool(ok):
         return False, None
     x = chol_ops.chol_solve(L, rhs)
@@ -249,10 +265,12 @@ def _restarted_pcg(solve, matvec, rhs, runs: int = 8):
     B = rhs[:, None]
     X = torch.zeros_like(B)
     R = B
+    profile.count("host_reads")
     goal = 1e-10 * max(float(torch.linalg.vector_norm(rhs)), 1.0)
     for _ in range(runs):
         X = X + solve(R)
         R = B - matvec(X)
+        profile.count("host_reads")
         if float(torch.max(torch.linalg.vector_norm(R, dim=0))) <= goal:
             break
     return X[:, 0]
@@ -357,6 +375,11 @@ def recover_primal(ipm, maker) -> Optional[Tuple[List[torch.Tensor], Optional[to
 def check_solution(ipm) -> np.ndarray:
     """Compute the 6 DIMACS errors and set the final status, including
     the acc -> inacc maker retry (ref hdsdp.c:905-918)."""
+    with profile.span("dimacs"):
+        return _check_solution(ipm)
+
+
+def _check_solution(ipm) -> np.ndarray:
     from hdsdp_tpu_torch.solver import algo
 
     errs = np.ones(6)
@@ -410,6 +433,7 @@ def _min_eval(X_list, x_lp) -> float:
     """Smallest eigenvalue over the primal blocks and the LP primal."""
     min_eval = np.inf
     for Xg in X_list:
+        profile.count("host_reads")
         me = float(_batch_min_eval(Xg))
         if Xg.shape[-1] >= _LANCZOS_EIG_DIM and Xg.dtype == torch.float64:
             # the estimate can only under-report a violation: the
@@ -419,6 +443,7 @@ def _min_eval(X_list, x_lp) -> float:
         else:
             min_eval = min(min_eval, me)
     if x_lp is not None:
+        profile.count("host_reads")
         min_eval = min(min_eval, float(torch.min(x_lp)))
     return min_eval
 
@@ -443,13 +468,18 @@ def _dimacs_errors(ipm, maker) -> Optional[np.ndarray]:
     groups, lp = cones.data_for(y, ipm.Rd, ipm.perturb)
     y, = jlift(y, by=(ipm.Rd, ipm.perturb))
     S, s_lp = cone_ops.assemble(groups, lp, 1.0, -1.0, y, -ipm.Rd + ipm.perturb)
+    profile.count("host_reads")
     d_obj = float(jdot(ipm.b, y))
     ax = cones.atx(X_list, x_lp)
+    profile.count("host_reads")
     p_obj = float(cones.ctx(X_list, x_lp))
     compl = 0.0
     for Xg, Sg in zip(X_list, S):
+        profile.count("host_reads")
         compl += float(torch.sum(Xg * Sg))
     if x_lp is not None:
+        profile.count("host_reads")
         compl += float(jdot(x_lp, s_lp))
+    profile.count("host_reads")
     p_inf_norm = float(torch.linalg.vector_norm(ax - ipm.b))
     return _errors_from_parts(ipm, p_obj, d_obj, compl, _min_eval(X_list, x_lp), p_inf_norm)

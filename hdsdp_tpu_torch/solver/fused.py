@@ -48,6 +48,11 @@ Syncs that are not decisions, not counted in ``n_reads``: on CUDA
 the 16-step Lanczos' k x k tridiagonal (one per group per ratio test from
 n = 192) and the exact ratio test below n = 192 (control11).  Every
 Cholesky here is ``cholesky_ex`` (no sync); nothing indexes by a mask.
+While a ``utils.profile.recording()`` is open, the counter ``host_reads``
+counts every read, these included, at the line that reads; ``ratio_tests``
+counts ``cone_ratio`` calls; and the layers are spans (``iter`` per body
+call, ``phase`` per phase launch, ``ratio_test``, ``build_kkt``,
+``factor_m``, ``solve_m``, ``check_interior``, ``ipm_setup``).
 
 Every phase launch starts from and ends in the ``DualIPM`` (prologues,
 PSDP and the final DIMACS check are its host code), as in the JAX package.
@@ -88,6 +93,7 @@ from hdsdp_tpu_torch.ops import chol as chol_ops
 from hdsdp_tpu_torch.ops import ratio as ratio_ops
 from hdsdp_tpu_torch.ops import schur as schur_ops
 from hdsdp_tpu_torch.solver import cones as cone_ops
+from hdsdp_tpu_torch.utils import profile
 
 INF = 1e30
 
@@ -222,6 +228,7 @@ def _read(c: Cones, flag: torch.Tensor):
     """One host read of a device flag (a decision point): a bool, or for a
     fleet the flag of every instance (a numpy bool array), in one copy."""
     c.n_reads += 1
+    profile.count("host_reads")
     if c.fleet:
         return flag.cpu().numpy().astype(bool)
     return bool(flag)
@@ -231,6 +238,7 @@ def _read_all(c: Cones, *xs):
     """Several device flags or scalars in one host read (for a fleet, one
     numpy row of N values each)."""
     c.n_reads += 1
+    profile.count("host_reads")
     vals = torch.stack([x.to(torch.float64) for x in xs])
     return list(vals.cpu().numpy()) if c.fleet else vals.tolist()
 
@@ -412,31 +420,34 @@ def cone_ratio(c: Cones, L, s_lp, dS, ds_lp, lz):
     stagnation perturbation applied inside block_ratio) and runs a
     reduced fixed depth.  Returns (step, new_lz): one step per instance
     of a fleet, from one batched test over all of them."""
-    cfg = c.cfg
-    step = c.b.new_full(_lead(c), INF)
-    new_lz = []
-    for gi, (Lg, dSg) in enumerate(zip(L, dS)):
-        if cfg.kwarm > 0:
-            steps, w = ratio_ops.block_ratio(
-                Lg, dSg, mode=cfg.ratio_mode, krylov=cfg.kwarm,
-                v0=lz[gi], return_warm=True, adaptive=False, nan_safe=True,
-            )
-            new_lz.append(lz[gi] if w is None else w.to(lz[gi].dtype))
-        else:
-            steps = ratio_ops.block_ratio(Lg, dSg, mode=cfg.ratio_mode,
-                                          krylov=cfg.krylov, nan_safe=True)
-            new_lz.append(lz[gi])
-        step = torch.minimum(step, _vmin(c, steps))
-    if c.lp is not None:
-        step = torch.minimum(step, ratio_ops.vector_ratio_test(s_lp, ds_lp))
-    return step, tuple(new_lz)
+    profile.count("ratio_tests")
+    with profile.span("ratio_test"):
+        cfg = c.cfg
+        step = c.b.new_full(_lead(c), INF)
+        new_lz = []
+        for gi, (Lg, dSg) in enumerate(zip(L, dS)):
+            if cfg.kwarm > 0:
+                steps, w = ratio_ops.block_ratio(
+                    Lg, dSg, mode=cfg.ratio_mode, krylov=cfg.kwarm,
+                    v0=lz[gi], return_warm=True, adaptive=False, nan_safe=True,
+                )
+                new_lz.append(lz[gi] if w is None else w.to(lz[gi].dtype))
+            else:
+                steps = ratio_ops.block_ratio(Lg, dSg, mode=cfg.ratio_mode,
+                                              krylov=cfg.krylov, nan_safe=True)
+                new_lz.append(lz[gi])
+            step = torch.minimum(step, _vmin(c, steps))
+        if c.lp is not None:
+            step = torch.minimum(step, ratio_ops.vector_ratio_test(s_lp, ds_lp))
+        return step, tuple(new_lz)
 
 
 def build_kkt(c: Cones, L, s_lp, Rd, kind: str) -> cone_ops.KKTOut:
     """Mirror of cones._build_kkt (kind in {"inf", "hsd", "corr"})."""
     c.n_builds[kind] = c.n_builds.get(kind, 0) + 1
-    return cone_ops.build_kkt(c.groups, c.lp, L, s_lp, Rd, c.b.shape[-1], kind,
-                              hp=c.cfg.hp)
+    with profile.span("build_kkt"):
+        return cone_ops.build_kkt(c.groups, c.lp, L, s_lp, Rd, c.b.shape[-1], kind,
+                                  hp=c.cfg.hp)
 
 
 # ----------------------------------------------------------------------
@@ -510,34 +521,36 @@ def _factor_m_mp(c: Cones, M):
 
 
 def factor_m(c: Cones, M):
-    if c.cfg.mp:
-        return _factor_m_mp(c, M)
-    return _factor_m_f64(c, M)
+    with profile.span("factor_m"):
+        if c.cfg.mp:
+            return _factor_m_mp(c, M)
+        return _factor_m_f64(c, M)
 
 
 def solve_m(c: Cones, Lm, rhs):
     """Solve against factor_m's factor: rhs [m] or [m, k] (a fleet's with
     its leading axis).  Under kkt_mp, per instance: the f64 factor's solve
     where ``need64`` holds, the refinement elsewhere (``_cond``)."""
-    if not c.cfg.mp:
-        return chol_ops.chol_solve(Lm, rhs)
-    M, L32, s, Lf64, need64, inv, hp = Lm
-    vec = rhs.ndim == M.ndim - 1
-    rhs2 = rhs[..., None] if vec else rhs
+    with profile.span("solve_m"):
+        if not c.cfg.mp:
+            return chol_ops.chol_solve(Lm, rhs)
+        M, L32, s, Lf64, need64, inv, hp = Lm
+        vec = rhs.ndim == M.ndim - 1
+        rhs2 = rhs[..., None] if vec else rhs
 
-    def direct():
-        L = Lf64
-        if L is None:  # deferred f64 tier (hp sizes)
-            L, _ = _factor_m_f64(c, M)
-        return chol_ops.chol_solve(L, rhs2)
+        def direct():
+            L = Lf64
+            if L is None:  # deferred f64 tier (hp sizes)
+                L, _ = _factor_m_f64(c, M)
+            return chol_ops.chol_solve(L, rhs2)
 
-    def refine():
-        X, _, _ = cg_ops.refine_solve(M, L32, s, rhs2, max_iter=30, pre_inverted=inv,
-                                      hp_residual=hp, live=c.live if c.fleet else None)
-        return X
+        def refine():
+            X, _, _ = cg_ops.refine_solve(M, L32, s, rhs2, max_iter=30, pre_inverted=inv,
+                                          hp_residual=hp, live=c.live if c.fleet else None)
+            return X
 
-    X = _cond(c, need64, direct, refine)
-    return X[..., 0] if vec else X
+        X = _cond(c, need64, direct, refine)
+        return X[..., 0] if vec else X
 
 
 # ----------------------------------------------------------------------
@@ -560,20 +573,21 @@ def _where_opt(flag, a, b):
 
 def check_interior(c: Cones, st: State, tau, y, with_bound=True):
     """algo.check_is_interior: assemble at (tau, y), factor, update DUALVAR."""
-    S, s_lp = assemble(c, tau, -1.0, y, -st.Rd + st.perturb)
-    ok, L = factor(c, S, s_lp)
-    st = st._replace(
-        S=tuple(_where(ok, a, b) for a, b in zip(S, st.S)),
-        L=tuple(_where(ok, a, b) for a, b in zip(L, st.L)),
-        s_lp=_where_opt(ok, s_lp, st.s_lp),
-    )
-    interior = ok
-    if with_bound:
-        sl, su = bound_slacks(c, tau, y)
-        bok = (sl > 0).all(-1) & (su > 0).all(-1)
-        st = st._replace(sl=_where(bok, sl, st.sl), su=_where(bok, su, st.su))
-        interior = interior & bok
-    return interior, st
+    with profile.span("check_interior"):
+        S, s_lp = assemble(c, tau, -1.0, y, -st.Rd + st.perturb)
+        ok, L = factor(c, S, s_lp)
+        st = st._replace(
+            S=tuple(_where(ok, a, b) for a, b in zip(S, st.S)),
+            L=tuple(_where(ok, a, b) for a, b in zip(L, st.L)),
+            s_lp=_where_opt(ok, s_lp, st.s_lp),
+        )
+        interior = ok
+        if with_bound:
+            sl, su = bound_slacks(c, tau, y)
+            bok = (sl > 0).all(-1) & (su > 0).all(-1)
+            st = st._replace(sl=_where(bok, sl, st.sl), su=_where(bok, su, st.su))
+            interior = interior & bok
+        return interior, st
 
 
 def set_step(c: Cones, st: State, dtau, dy, gamma):
@@ -935,10 +949,11 @@ def _drive(c: Cones, body, st, max_iter: int, is_phase_b: bool, test_first: bool
     extras = phase_b_init_extras(c.b.device, _lead(c)) if is_phase_b else None
 
     def step(st, extras):
-        if is_phase_b:
-            out = body((st,) + extras)
-            return out[0], out[1:]
-        return body(st), None
+        with profile.span("iter"):
+            if is_phase_b:
+                out = body((st,) + extras)
+                return out[0], out[1:]
+            return body(st), None
 
     if c.fleet:
         if not test_first or deadline is not None:
@@ -1615,6 +1630,7 @@ def _print_fused_log(ipm, st: State, method: str, start_iter: int):
     """Print the per-iteration rows captured on the device."""
     if not ipm.params.verbose:
         return
+    profile.count("host_reads")
     rows = st.log.cpu().numpy()
     end = min(ipm.n_iter, rows.shape[0])
     pd = 1.0 / (ipm.rhs_scal * ipm.obj_scal)
@@ -1645,16 +1661,18 @@ def phase_exit(name: str, code: int, n_iter: int) -> str:
     return f"phase {name}: {what} at iteration {n_iter}"
 
 
-def _run_phase(ipm, c: Cones, name: str, body, st, whole: bool, is_phase_b: bool):
-    """One phase launch: "phase" (whole) drives the body as the JAX
-    package's in-graph while_loop does, "iter" with the wall-clock check.
-    Syncs the end state back into the ipm, records how the phase ended
-    and returns (status code, end state)."""
+def _run_phase(ipm, c: Cones, name: str, body, whole: bool, is_phase_b: bool):
+    """One phase launch from the ipm's iterate: "phase" (whole) drives the
+    body as the JAX package's in-graph while_loop does, "iter" with the
+    wall-clock check.  Syncs the end state back into the ipm, records how
+    the phase ended and returns (status code, end state)."""
     p = ipm.params
     deadline = None if whole else ipm.time_begin + p.time_limit
-    st = _drive(c, body, st, p.max_iter, is_phase_b, whole, deadline)
-    code = int(st.status)
-    _sync_to_ipm(st, ipm, c)
+    with profile.span("phase"):
+        st = _drive(c, body, _state_from_ipm(ipm), p.max_iter, is_phase_b, whole, deadline)
+        profile.count("host_reads")
+        code = int(st.status)
+        _sync_to_ipm(st, ipm, c)
     ipm._factor_stats["fused_exit"] = phase_exit(name, code, ipm.n_iter)
     return code, st
 
@@ -1680,8 +1698,7 @@ def _run_hsd_fused(ipm, c: Cones, d_only: bool, whole: bool = True):
         1.0 / (ipm.rhs_scal * ipm.obj_scal),
     ))
     start_iter = ipm.n_iter
-    code, st = _run_phase(ipm, c, "A'", lambda s: _hsd_body(c, hp, s), _state_from_ipm(ipm), whole,
-                          False)
+    code, st = _run_phase(ipm, c, "A'", lambda s: _hsd_body(c, hp, s), whole, False)
     _print_fused_log(ipm, st, "hsd", start_iter)
     if code == DUAL_FEASIBLE:
         ipm.status = algo.DUAL_OPTIMAL if d_only else algo.DUAL_FEASIBLE
@@ -1698,7 +1715,8 @@ def solve_fused(ipm, d_only: bool = False, mode: str = "phase"):
     iteration body with a wall-clock check after every iteration.  Both
     run the same bodies, so their iterates are bit-equal.
     """
-    c = _cones_from_ipm(ipm)
+    with profile.span("ipm_setup"):
+        c = _cones_from_ipm(ipm)
     ipm.psdp = None
     try:
         return _solve_fused(ipm, c, d_only, mode == "phase")
@@ -1716,23 +1734,24 @@ def _solve_fused(ipm, c: Cones, d_only: bool, whole: bool):
     f = ipm.f
 
     # ---- Phase A prologue (host, mirrors algo.phase_a before the loop)
-    ipm.which_method = "infeas"
-    allow_reset = not (f.many_cones or f.implied_trace or f.very_dense)
-    ipm.set_start("infeas", False)
-    if not ipm.check_is_interior(ipm.tau, ipm.y):
-        ipm.log.info("Initial point is not in the cone. Adding slack value.")
-        ipm.reset_start()
+    with profile.span("ipm_setup"):
+        ipm.which_method = "infeas"
+        allow_reset = not (f.many_cones or f.implied_trace or f.very_dense)
+        ipm.set_start("infeas", False)
         if not ipm.check_is_interior(ipm.tau, ipm.y):
-            ipm.status = algo.NUMERICAL
-            return ipm.status
-    ipm.log.header("infeas")
+            ipm.log.info("Initial point is not in the cone. Adding slack value.")
+            ipm.reset_start()
+            if not ipm.check_is_interior(ipm.tau, ipm.y):
+                ipm.status = algo.NUMERICAL
+                return ipm.status
+        ipm.log.header("infeas")
 
-    (reset_rd,) = _scalars(ipm.device, max(-max(f.obj_fro_norm, 1e+02) * 1e+06, -1e+15))
-    pars_a = _pars_from_ipm(ipm, "a")
+        (reset_rd,) = _scalars(ipm.device, max(-max(f.obj_fro_norm, 1e+02) * 1e+06, -1e+15))
+        pars_a = _pars_from_ipm(ipm, "a")
     start_iter = ipm.n_iter
     code, st = _run_phase(
         ipm, c, "A", lambda s: _phase_a_body(c, pars_a, reset_rd, s, p.corrector_a, allow_reset),
-        _state_from_ipm(ipm), whole, False)
+        whole, False)
     ipm.status = _STATUS_MAP.get(code, algo.NUMERICAL)
     _print_fused_log(ipm, st, "infeas", start_iter)
 
@@ -1762,7 +1781,7 @@ def _solve_fused(ipm, c: Cones, d_only: bool, whole: bool):
         start_iter = ipm.n_iter
         code, st = _run_phase(
             ipm, c, "B", lambda s: _phase_b_iteration(c, pars_b, s, p.corrector_b, psdp_eligible),
-            _state_from_ipm(ipm), whole, True)
+            whole, True)
         _print_fused_log(ipm, st, "potential", start_iter)
 
         if code == PSDP_HANDOFF:

@@ -30,6 +30,7 @@ import torch
 from hdsdp_tpu_torch.ops import chol as chol_ops
 from hdsdp_tpu_torch.ops import ratio as ratio_ops
 from hdsdp_tpu_torch.ops import schur as schur_ops
+from hdsdp_tpu_torch.utils import profile
 from hdsdp_tpu_torch.utils.device import jdot, jlift
 
 
@@ -72,6 +73,7 @@ def _primal_ratio(X, dX):
         ok = okg if ok is None else ok & okg
         Ls.append(LX)
     step = torch.full((), 1e30, dtype=X[0].dtype, device=X[0].device)
+    profile.count("host_reads")
     if not bool(ok):
         return ok, step
     for LX, dXg in zip(Ls, dX):
@@ -107,6 +109,10 @@ class PSDPRefiner:
         return self.X, None
 
     def optimize(self) -> bool:
+        with profile.span("psdp"):
+            return self._optimize()
+
+    def _optimize(self) -> bool:
         ipm = self.ipm
         from hdsdp_tpu_torch.solver import algo, dimacs
         from hdsdp_tpu_torch.solver.cones import KKTOut
@@ -123,6 +129,7 @@ class PSDPRefiner:
         X = [0.5 * (Xg + Xg.mT) for Xg in rec[0]]
         for Xg in X:
             ok, _ = _psd_check_sym(Xg)
+            profile.count("host_reads")
             if not bool(ok):
                 return False
 
@@ -171,6 +178,7 @@ class PSDPRefiner:
                 # chunk-materialized f32 Cholesky preconditioner when the
                 # layout supports it (the dual operator path's machinery)
                 diag = ipm.cones.kkt_diag(tuple(Xscal), None)
+                profile.count("host_reads")
                 reg = 1e-16 * float(torch.max(diag)) + 1e-300
                 op_state["extra"] = torch.full_like(diag, reg)
                 op_state["pinv"] = 1.0 / torch.clamp(diag + reg, min=1e-300)
@@ -218,6 +226,7 @@ class PSDPRefiner:
                 groups = ipm.cones.data_for(*Xscal)[0]
                 M = _build_primal_kkt(groups, Xscal, m, hp=bool(ipm.cones.kkt_hp))
             # regularize (ref HKKTRegularize with 1e-16 coefficient)
+            profile.count("host_reads")
             reg = 1e-16 * float(torch.max(torch.diagonal(M))) + 1e-300
             ipm.kkt = KKTOut(
                 M=M + reg * torch.eye(m, dtype=M.dtype, device=M.device),
@@ -244,6 +253,7 @@ class PSDPRefiner:
             cones = ipm.cones
             Xs, extra = tuple(Xscal), op_state["extra"]
             budget = max(p.kkt_free_maxiter, 600)
+            profile.count("host_reads")
             bscale = max(float(torch.linalg.vector_norm(rhs)), 1.0)
             B = rhs[:, None]
             sol = torch.zeros_like(B)
@@ -254,6 +264,7 @@ class PSDPRefiner:
                     Xs, None, extra, Linv, s, B,
                     abs_tol=1e-10, rel_tol=1e-10, max_iter=budget,
                 )
+                profile.count("host_reads")
                 if float(torch.max(res)) <= 1e-06 * bscale:
                     return sol[:, 0]
                 # keep the chol iterate: the Jacobi runs below start
@@ -266,6 +277,7 @@ class PSDPRefiner:
                 )
                 sol = sol + dsol
                 R = B - cones.kkt_matvec(Xs, None, extra, sol)
+                profile.count("host_reads")
                 if float(torch.linalg.vector_norm(R)) <= 1e-08 * bscale:
                     break
             return sol[:, 0]
@@ -279,6 +291,7 @@ class PSDPRefiner:
         for _ in range(100):
             ax = ipm.cones.atx(X, None)
             rp = b - ax
+            profile.count("host_reads")
             p_inf_norm = float(torch.linalg.vector_norm(rp))
 
             # rhs = A(XSX/mu - X) + rp  (ref :240-255)
@@ -288,6 +301,7 @@ class PSDPRefiner:
 
             # dual ratio test; dS = -A'dy (Rd = 0)
             dS, _ = ipm.cones.assemble(0.0, -1.0, dy, 0.0)
+            profile.count("host_reads")
             d_step = float(ipm.cones.ratio_test(ipm.L, None, dS, None))
 
             # dX = X - XSX/mu - Xscal dS Xscal / mu  (ref :283-300)
@@ -297,8 +311,10 @@ class PSDPRefiner:
             # primal ratio test: X + a dX >= 0 (Lanczos at size, exact
             # eigh for small blocks)
             okX, p_step_dev = _primal_ratio(tuple(X), tuple(dX))
+            profile.count("host_reads")
             if not bool(okX):
                 return fail("X not PSD at ratio test")
+            profile.count("host_reads")
             p_step = float(p_step_dev)
 
             p_step = min(0.5 * p_step, 1.0)
@@ -313,10 +329,12 @@ class PSDPRefiner:
             ipm.y = y_new
 
             ok_all, compl_dev = _post_step(tuple(X), tuple(ipm.S))
+            profile.count("host_reads")
             if not bool(ok_all):
                 return fail("stepped X not PSD")
 
             # objective + barrier update (ref :352-383)
+            profile.count("host_reads", 3)
             d_obj = float(jdot(b, ipm.y))
             p_obj = float(ipm.cones.ctx(X, None))
             compl = float(compl_dev)

@@ -14,6 +14,7 @@ from hdsdp_tpu_torch.io.sdpa import read_sdpa
 from hdsdp_tpu_torch.models.problem import SDPProblem
 from hdsdp_tpu_torch.solver import algo, dimacs
 from hdsdp_tpu_torch.solver.params import Params
+from hdsdp_tpu_torch.utils import profile
 from hdsdp_tpu_torch.utils.checkpoint import (
     apply_checkpoint,
     load_checkpoint,
@@ -44,6 +45,7 @@ class Result:
 
 
 def _host(x) -> np.ndarray:
+    profile.count("host_reads")
     return x.detach().cpu().numpy()
 
 
@@ -83,12 +85,17 @@ class HDSDPSolver:
         """Solve; ``resume_from`` seeds the solve with a checkpoint (the
         dual start and both makers) written by either package,
         ``checkpoint_to`` writes one after the IPM ends."""
+        with profile.span("solve"):
+            return self._optimize(d_only, resume_from, checkpoint_to)
+
+    def _optimize(self, d_only, resume_from, checkpoint_to) -> Result:
         t0 = time.time()
-        ipm = algo.DualIPM(self.prob, self.params, device=self.device, mesh=self.mesh)
-        if self._dual_start is not None:
-            ipm.y0 = ipm._vec(self._dual_start)
-        if resume_from is not None:
-            apply_checkpoint(ipm, load_checkpoint(resume_from))
+        with profile.span("ipm_setup"):
+            ipm = algo.DualIPM(self.prob, self.params, device=self.device, mesh=self.mesh)
+            if self._dual_start is not None:
+                ipm.y0 = ipm._vec(self._dual_start)
+            if resume_from is not None:
+                apply_checkpoint(ipm, load_checkpoint(resume_from))
         self.ipm = ipm
         if self.params.verbose:
             print(f"\nhdsdp_tpu_torch: semidefinite programming solver on {self.device}\n")
@@ -138,6 +145,10 @@ class HDSDPSolver:
         """Recovered primal per ORIGINAL block (list of [n, n]) + LP x."""
         if self.ipm is None:
             raise RuntimeError("call optimize() first")
+        with profile.span("get_primal"):
+            return self._get_primal()
+
+    def _get_primal(self):
         ipm = self.ipm
         if ipm.psdp is not None:  # set only by a refinement that returned its X
             X_groups, x_lp = ipm.psdp.get_primal()

@@ -1,15 +1,26 @@
 """Tracing and profiling utilities (the JAX package's ``utils/profile.py``
 in torch idiom).
 
-  * ``Region``      named wall-clock accumulators (the reference's
+  * ``span``, ``count``, ``recording``  the program's one tracer: spans at
+                    its layer boundaries and counters at the sites where
+                    the work happens (the reference's
                     HDSDP_CODE_PROFILER_START/END, ref
-                    interface/hdsdp_utils.h:55-70);
+                    interface/hdsdp_utils.h:55-70), off unless a
+                    ``recording()`` is open;
   * ``profile_fn``  repeat-and-time a callable (HDSDP_PROFILER), waiting
                     for the CUDA devices its outputs lie on;
   * ``trace``       a ``torch.profiler`` run written as a Chrome trace;
   * ``PhaseStats``  per-phase counters with the factor:solve time ratio
                     the LP solver uses as a policy input (ref
                     def_hdsdp_lpkkt.h:42-46, hdsdp_lpsolve.c:501-503).
+
+The tracer never waits for the device and never reads it: a span is the
+host's interval (``time.perf_counter_ns``), and each also opens a
+``torch.profiler.record_function`` labelled ``hdsdp/<name>``, so that a
+profiler's trace holds it on the kernels' clock, with its image on the
+device's timeline.  Off (the default), ``span`` returns one shared no-op
+context and ``count`` returns, after one check of a module global each.
+Recording is for the thread that opened it.
 
 ``utils/stage_profile.py`` is the port's own per-stage tool for the SDP
 solve and is separate from these.
@@ -20,32 +31,98 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from collections import defaultdict
 from dataclasses import dataclass, field
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Optional
 
 import torch
 
+LABEL = "hdsdp/"  # the profiler's label of a span: LABEL + name
 
-class Region:
-    """Named wall-clock accumulators."""
+_NULL = contextlib.nullcontext()
+_REC: Optional["Recording"] = None  # the recording in progress; None: off
 
-    def __init__(self):
-        self.total: Dict[str, float] = defaultdict(float)
-        self.count: Dict[str, int] = defaultdict(int)
 
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.total[name] += time.perf_counter() - t0
-            self.count[name] += 1
+@dataclass
+class SpanRecord:
+    """One closed span: host nanoseconds (``time.perf_counter_ns``), its id,
+    the id of the span it ran in, and of the outermost span around it (a
+    ``solve`` root's id is shared by every span under it)."""
 
-    def report(self) -> str:
-        rows = sorted(self.total.items(), key=lambda kv: -kv[1])
-        return "\n".join(f"{k:30s} {v:10.3f}s  x{self.count[k]}" for k, v in rows)
+    name: str
+    t0: int
+    t1: int
+    id: int
+    parent: Optional[int]
+    root: int
+
+
+@dataclass
+class Recording:
+    """What a ``recording()`` collected: closed spans, in the order they
+    closed, and counters by name."""
+
+    spans: List[SpanRecord] = field(default_factory=list)
+    counters: Dict[str, int] = field(default_factory=dict)
+    _open: list = field(default_factory=list, repr=False)
+    _next_id: int = 0
+
+
+class _Span:
+    __slots__ = ("rec", "name", "id", "parent", "root", "rf", "t0")
+
+    def __init__(self, rec: Recording, name: str):
+        self.rec = rec
+        self.name = name
+
+    def __enter__(self):
+        rec = self.rec
+        self.id = rec._next_id
+        rec._next_id += 1
+        outer = rec._open
+        self.parent = outer[-1].id if outer else None
+        self.root = outer[0].id if outer else self.id
+        outer.append(self)
+        self.rf = torch.profiler.record_function(LABEL + self.name)
+        self.rf.__enter__()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        self.rf.__exit__(*exc)
+        rec = self.rec
+        rec._open.pop()
+        rec.spans.append(SpanRecord(self.name, self.t0, t1, self.id, self.parent, self.root))
+        return False
+
+
+def span(name: str):
+    """A context manager that records the block as a span ``name`` while a
+    recording is open, and does nothing otherwise."""
+    if _REC is None:
+        return _NULL
+    return _Span(_REC, name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a recording is open."""
+    if _REC is not None:
+        _REC.counters[name] = _REC.counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recording():
+    """Turn the tracer on for the block; yields the ``Recording`` that
+    holds its spans and counters (complete when the block ends)."""
+    global _REC
+    if _REC is not None:
+        raise RuntimeError("a recording is already open")
+    rec = Recording()
+    _REC = rec
+    try:
+        yield rec
+    finally:
+        _REC = None
 
 
 def _cuda_devices(out, found: set) -> set:
