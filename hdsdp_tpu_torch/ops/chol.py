@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from hdsdp_tpu_torch.utils import profile
 from hdsdp_tpu_torch.utils.device import jlift
 
 
@@ -69,20 +70,25 @@ def chol_inverse(L: torch.Tensor, use_dd: bool = False) -> torch.Tensor:
     strips run through the Ozaki matmul).  The JAX package forces that
     route at n >= 8192 on a TPU, where XLA cannot compile the n-RHS
     triangular solve; the same gate (utils.device.is_tpu) is false on every
-    device the port runs on."""
-    n = L.shape[-1]
-    single = L.ndim >= 3 and L.shape[-3] == 1
-    if not use_dd and single and n >= 8192:
-        from hdsdp_tpu_torch.utils import device
+    device the port runs on.
 
-        use_dd = device.is_tpu()
-    if use_dd and single and n >= 512:
-        from hdsdp_tpu_torch.ops import ddchol
+    Each call counts one ``sinv`` and records one ``sinv`` span (the
+    host's enqueue; no sync) while a ``utils.profile`` recording is open."""
+    profile.count("sinv")
+    with profile.span("sinv"):
+        n = L.shape[-1]
+        single = L.ndim >= 3 and L.shape[-3] == 1
+        if not use_dd and single and n >= 8192:
+            from hdsdp_tpu_torch.utils import device
 
-        return ddchol.spd_inverse_from_f64_tri(L[..., 0, :, :]).unsqueeze(-3)
-    eye = torch.eye(n, dtype=L.dtype, device=L.device).expand(L.shape)
-    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
-    return Linv.mT @ Linv
+            use_dd = device.is_tpu()
+        if use_dd and single and n >= 512:
+            from hdsdp_tpu_torch.ops import ddchol
+
+            return ddchol.spd_inverse_from_f64_tri(L[..., 0, :, :]).unsqueeze(-3)
+        eye = torch.eye(n, dtype=L.dtype, device=L.device).expand(L.shape)
+        Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+        return Linv.mT @ Linv
 
 
 def chol_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -192,6 +192,27 @@ def test_counters_maxcut():
     assert infos[0].dense is not None and infos[0].lam is None
 
 
+def test_no_eigh_of_a_maxcut_objective_above_the_eig_support(monkeypatch):
+    """maxG55's shape (C's support 5000 > max_eig_support 2048), cut to
+    n = 300 against a support cap of 256: C is bucketed dense with neither
+    an eigh nor a certificate; the one stacked eigh is of the X_ii rows."""
+    calls = []
+    real = np.linalg.eigh
+
+    def counting(a, *args, **kw):
+        calls.append(np.shape(a))
+        return real(a, *args, **kw)
+
+    monkeypatch.setattr(coeffs.np.linalg, "eigh", counting)
+    data = syn.maxcut_sdpa(n=300, seed=1)
+    blk = data.blocks[0]
+    with profile.recording() as rec:
+        infos = _check(blk.dim, data.m, blk.con, blk.row, blk.col, blk.val, max_eig_support=256)
+    assert rec.counters == {"analyze_eigh_calls": 1}
+    assert calls[0] == (300, 1, 1) and all(c[-1] == 1 for c in calls)
+    assert infos[0].dense is not None and infos[0].lam is None and infos[0].rank == 300
+
+
 def test_counters_theta():
     data = syn.theta_sdpa(n=300, n_edges=4374, seed=0)
     blk = data.blocks[0]

@@ -134,6 +134,45 @@ def test_traced_solo_solve(one_thread, monkeypatch):
     assert (on.p_obj, on.d_obj, on.n_iters) == (off.p_obj, off.d_obj, off.n_iters)
 
 
+def test_sinv_span_and_count_per_chol_inverse(one_thread, monkeypatch):
+    """Every ``chol_inverse`` call counts one ``sinv`` and records one
+    ``sinv`` span under a recording, and nothing without one."""
+    from hdsdp_tpu_torch.ops import chol as chol_ops
+
+    data = maxcut_sdpa(n=24, seed=3)
+    calls = []
+    inner = chol_ops.chol_inverse
+
+    def wrapped(*args, **kwargs):
+        calls.append(1)
+        return inner(*args, **kwargs)
+
+    monkeypatch.setattr(chol_ops, "chol_inverse", wrapped)
+
+    def solve():
+        s = HDSDPSolver(SDPProblem.from_sdpa(data), device="cpu", verbose=False, fused="iter")
+        r = s.optimize()
+        s.get_primal()
+        return r
+
+    with profile.recording() as rec:
+        on = solve()
+    sinv = [s for s in rec.spans if s.name == "sinv"]
+    assert on.status == "PRIMAL_DUAL_OPTIMAL" and len(calls) > on.n_iters
+    assert rec.counters["sinv"] == len(calls) == len(sinv)
+    by_id = {s.id: s.name for s in rec.spans}
+    assert {by_id[s.parent] for s in sinv} <= {"build_kkt", "dimacs", "get_primal"}
+    assert all(s.t0 <= s.t1 for s in sinv)
+    opened = []
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: opened.append(name) or torch.autograd.profiler.record_function(name))
+    calls.clear()
+    off = solve()
+    assert len(calls) == len(sinv) and opened == []
+    assert rec.counters["sinv"] == len(sinv)  # the closed recording is left as it was
+    assert np.array_equal(on.y, off.y) and on.n_iters == off.n_iters
+
+
 def test_traced_fleet_of_two(one_thread, monkeypatch):
     probs = [SDPProblem.from_sdpa(maxcut_sdpa(n=24, seed=s)) for s in (1, 2)]
     off = solve_batch(probs, device="cpu")
