@@ -23,6 +23,7 @@ from hdsdp_tpu_torch.ops import chol as tchol
 from hdsdp_tpu_torch.ops import ratio as tratio
 from hdsdp_tpu_torch.ops import schur as tschur
 from hdsdp_tpu_torch.solver import cones as tcones
+from hdsdp_tpu_torch.utils import profile as tprofile
 
 def _diag_perm_sdpa():
     """A diag rank-1 problem no generator makes: m = 8 < n = 12, the
@@ -287,6 +288,155 @@ def test_adaptive_lanczos_never_factors_a_padded_tridiagonal(monkeypatch):
                                 return_warm=True)
     assert sizes and sizes == sorted(sizes) and all(k % 3 == 0 or k == 30 for k in sizes)
     assert _rel(st, sj) < 1e-5 and _rel(wt, wj) < 1e-4
+
+
+def _trsv_operator(L, dS, dt):
+    """The Lanczos operator by two triangular solves a matvec, the
+    reference's form: a yardstick for the port's products with L^{-1}."""
+    L, dS = L.to(dt), dS.to(dt)
+
+    def mv(x):
+        u = torch.linalg.solve_triangular(L.mT, x[..., None], upper=True)
+        return torch.linalg.solve_triangular(L, -(dS @ u), upper=False)[..., 0]
+
+    return mv
+
+
+def _ratio_case(n, seed, batch=1):
+    rng = np.random.default_rng(seed)
+    L = np.linalg.cholesky(_spd(rng, n, batch))
+    G = rng.standard_normal((batch, n, n))
+    return L, (G + np.swapaxes(G, 1, 2)) / np.sqrt(n)
+
+
+@pytest.mark.parametrize("leaf", [None, 64, 200])
+@pytest.mark.parametrize("lead,n", [((1,), 512), ((1,), 1100), ((3, 1), 777)])
+def test_triangular_inverse(monkeypatch, leaf, lead, n):
+    """The f32 L^{-1} the Lanczos applies above the gate: its diagonal
+    blocks solved against I, the rest joined by products (with and
+    without a shorter last block, alone and for a fleet), within f32
+    rounding of the f64 inverse, exactly zero above the diagonal, and
+    L's copy negated in place only."""
+    if leaf is not None:
+        monkeypatch.setattr(tratio, "TRI_INV_LEAF", leaf)
+    rng = np.random.default_rng(n)
+    L = torch.as_tensor(np.linalg.cholesky(_spd(rng, n, int(np.prod(lead))).reshape(lead + (n, n))))
+    L0 = L.clone()
+    X = tratio._inverse(L, torch.float32)
+    want = torch.linalg.solve_triangular(L, torch.eye(n, dtype=L.dtype).expand_as(L), upper=False)
+    assert X.dtype == torch.float32 and X.shape == L.shape and torch.equal(L, L0)
+    assert bool((torch.triu(X, 1) == 0).all())
+    assert _rel(X.double(), want) < 1e-6
+
+
+@pytest.mark.parametrize("leaf", [None, 200])
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_ratio_inverse_path_matches_jax(monkeypatch, adaptive, leaf):
+    """Through the explicit f32 L^{-1} the Lanczos applies (one diagonal
+    block, or with a smaller TRI_INV_LEAF blocks joined by products), the
+    fixed-depth and the adaptive bound agree with the JAX package's
+    triangular solves to f32 rounding, cold and warm-started; a fleet
+    [N, 1, n, n] gives each member its solo bound to f32 rounding (batched
+    and single products round apart, as triangular solves do)."""
+    if leaf is not None:
+        monkeypatch.setattr(tratio, "TRI_INV_LEAF", leaf)
+    n = 512
+    L, dS = _ratio_case(n, 21)
+    kw = dict(mode="lanczos", return_warm=True, adaptive=adaptive)
+    if not adaptive:
+        kw["krylov"] = 16
+    sj, wj = jratio.block_ratio(jnp.asarray(L), jnp.asarray(dS), **kw)
+    with tprofile.recording() as rec:
+        st, wt = tratio.block_ratio(torch.as_tensor(L), torch.as_tensor(dS), **kw)
+    assert rec.counters.get("ratio_inverse") == 1
+    assert _rel(st, sj) < 1e-5 and _rel(wt, wj) < 1e-4
+    sj2 = jratio.block_ratio(jnp.asarray(L), jnp.asarray(dS) * 1.1, v0=wj, **kw)[0]
+    st2 = tratio.block_ratio(torch.as_tensor(L), torch.as_tensor(dS) * 1.1,
+                             v0=torch.tensor(np.asarray(wj)), **kw)[0]
+    assert _rel(st2, sj2) < 1e-5
+    # a fleet of three: member 1 is the block above, 0 and 2 others
+    Lf, dSf = _ratio_case(n, 22, batch=3)
+    Lf[1], dSf[1] = L[0], dS[0]
+    sf, wf = tratio.block_ratio(torch.as_tensor(Lf[:, None]), torch.as_tensor(dSf[:, None]), **kw)
+    assert sf.shape == (3, 1) and wf.shape == (3, 1, n)
+    for i in range(3):
+        si, wi = tratio.block_ratio(torch.as_tensor(Lf[i:i + 1]), torch.as_tensor(dSf[i:i + 1]),
+                                    **kw)
+        assert _rel(sf[i], si) < 1e-5 and _rel(wf[i], wi) < 1e-4
+    assert _rel(sf[1], st) < 1e-5
+
+
+@pytest.mark.parametrize("leaf", [None, 200])
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("seed", [5, 6, 7])
+def test_ratio_inverse_path_ill_conditioned(monkeypatch, adaptive, seed, leaf):
+    """On an S with condition 1e8, as late iterations have, with the top
+    of the operator's spectrum in S's small eigenvalues: the bound through
+    the explicit f32 inverse (one block, or blocks joined by products;
+    before the 0.995 factor) is no further from the f64 exact step than
+    twice the bound through two triangular solves a matvec, or than 1e-6
+    (a few f32 roundings) where that one is closer; with the factor it is
+    never above the exact step."""
+    if leaf is not None:
+        monkeypatch.setattr(tratio, "TRI_INV_LEAF", leaf)
+    n = 512
+    rng = np.random.default_rng(seed)
+    Q = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    S = (Q * np.logspace(0, -8, n)) @ Q.T
+    L = torch.as_tensor(np.linalg.cholesky(0.5 * (S + S.T))[None])
+    G = rng.standard_normal((1, n, n))
+    dS = torch.as_tensor((G + np.swapaxes(G, 1, 2)) * 1e-6 / np.sqrt(n) - 1e-7 * S)
+    exact = float(tratio.exact_ratio_test(L, dS)[0])
+    kw = dict(mode="lanczos", adaptive=adaptive, krylov=30 if adaptive else 16)
+    gemv = float(tratio.block_ratio(L, dS, **kw)[0])
+    monkeypatch.setattr(tratio, "_operator", _trsv_operator)
+    trsv = float(tratio.block_ratio(L, dS, **kw)[0])
+    assert np.isfinite(exact) and 0 < gemv <= exact
+    err_t = abs(trsv / 0.995 - exact) / exact
+    assert abs(gemv / 0.995 - exact) / exact <= max(2.0 * err_t, 1e-6)
+
+
+@pytest.mark.parametrize("split", [True, False])
+def test_ratio_nan_factor(monkeypatch, split):
+    """A NaN factor under nan_safe, with L^{-1} formed from one diagonal
+    block or from blocks joined by products: the member gets the JAX
+    package's answer, a NaN warm vector and the no-bound sentinel step
+    (NaN Ritz values fail the bound's positivity test), and the other
+    members of the fleet keep their own steps."""
+    n = 512
+    if split:
+        monkeypatch.setattr(tratio, "TRI_INV_LEAF", 200)
+    L, dS = _ratio_case(n, 23, batch=2)
+    L[0, 3:, 2] = np.nan
+    kw = dict(krylov=16, return_warm=True, adaptive=False)
+    sj, _ = jratio.block_ratio(jnp.asarray(L[:, None]), jnp.asarray(dS[:, None]), **kw)
+    with tprofile.recording() as rec:
+        steps, warm = tratio.block_ratio(torch.as_tensor(L[:, None]),
+                                         torch.as_tensor(dS[:, None]), nan_safe=True, **kw)
+    assert rec.counters.get("ratio_inverse") == 1
+    assert float(steps[0, 0]) == float(np.asarray(sj)[0, 0]) > 1e29
+    assert bool(torch.isnan(warm[0]).all()) and bool(torch.isfinite(warm[1]).all())
+    alone = tratio.block_ratio(torch.as_tensor(L[1:]), torch.as_tensor(dS[1:]), krylov=16,
+                               adaptive=False, nan_safe=True)
+    assert _rel(steps[1], alone) < 1e-5 and _rel(steps[1], np.asarray(sj)[1]) < 1e-5
+
+
+@pytest.mark.parametrize("side", ["below", "at"])
+def test_ratio_inverse_gate(side):
+    """The counter ``ratio_inverse`` counts one per group and Lanczos test,
+    with a span around the inverse; below AUTO_LANCZOS_DIM, where the test
+    is the exact eigenvalues', it counts none and block_ratio returns
+    exact_ratio_test's bits."""
+    n = tratio.AUTO_LANCZOS_DIM - (side == "below")
+    L, dS = _ratio_case(n, 24, batch=2)
+    L, dS = torch.as_tensor(L), torch.as_tensor(dS)
+    with tprofile.recording() as rec:
+        for _ in range(2):
+            got = tratio.block_ratio(L, dS, krylov=16, adaptive=False)
+    assert rec.counters.get("ratio_inverse", 0) == 2 * (side == "at")
+    assert [sp.name for sp in rec.spans] == ["ratio_inverse"] * (2 * (side == "at"))
+    if side == "below":
+        assert torch.equal(got, tratio.exact_ratio_test(L, dS))
 
 
 def _own_groups(name, layout):
