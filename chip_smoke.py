@@ -149,11 +149,6 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              of 4 x maxcut_sdpa(n=1000, seed=s) with cone_fp="dd" through
              solve_batch (K8 and K1/K1s take the 4 instances in one launch),
              every member finished in the fleet and held to its solo solve.
-             Then the tiers the JAX package gates on a TPU, forced on at their
-             thresholds: AdaptiveCG's DD tier at m = 4096, refine_solve
-             pre-inverted and with the Ozaki residual at m = 8192,
-             dimacs._dd_solve_checked at m = 4096 (and its fallback on an
-             indefinite M), dimacs._uwu through hpmm at n = 8192.
  13. f32     dtype="float32" on the host loop (fused=False) through
              HDSDPSolver: maxG51 (diag bucket), control11 (flat bucket,
              three blocks) and theta6 (support bucket, AdaptiveCG), each
@@ -173,7 +168,6 @@ limit, and the contract line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
-import math
 import os
 import subprocess
 import sys
@@ -1219,148 +1213,6 @@ def _dd_phase(torch, solve_sdpa_file, instances, hpmm, default_wall, tmp):
     return launches
 
 
-def _spd_card(torch, m, cond, seed, dev):
-    """An SPD [m, m] f64 matrix on the card with eigenvalues log-spaced from
-    1 to ``cond`` (the pattern of tests/test_cg.py), made on the card from a
-    seeded host generator."""
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    q, _ = torch.linalg.qr(torch.randn((m, m), generator=g, dtype=torch.float64).to(dev))
-    w = torch.logspace(0, math.log10(cond), m, dtype=torch.float64, device=dev)
-    a = (q * w) @ q.T
-    return 0.5 * (a + a.T)
-
-
-def _gated_phase(torch, hpmm, dev):
-    """The tiers the JAX package gates on a TPU, forced on at their own
-    thresholds and held as tests/test_cg.py holds the JAX ones: AdaptiveCG's
-    DD full-precision tier at m = 4096 (cond 1e10) against a direct f64
-    solve, refine_solve with pre_inverted and with hp_residual at m = 8192
-    against the f64 solve, dimacs._dd_solve_checked against
-    _chol_solve_ladder at m = 4096 (and its fallback on an indefinite M),
-    and dimacs._uwu through hpmm against the f64 product at n = 8192."""
-    from hdsdp_tpu_torch.ops import cg as cg_ops
-    from hdsdp_tpu_torch.ops import ddchol
-    from hdsdp_tpu_torch.solver import dimacs
-    from hdsdp_tpu_torch.utils import device as device_mod
-
-    saved = device_mod.is_tpu
-    device_mod.is_tpu = lambda: True
-    try:
-        _require(cg_ops.use_dd_full_tier(4096) and not cg_ops.use_dd_full_tier(4095)
-                 and cg_ops.use_hp_residual(8192) and cg_ops.use_inverted_precond(512),
-                 "the gates do not open at their thresholds")
-        out = {}
-        # AdaptiveCG's DD tier at m = 4096
-        m = 4096
-        M = _spd_card(torch, m, 1e10, 3, dev)
-        g = torch.Generator(device="cpu").manual_seed(4)
-        rhs = torch.randn((m, 2), generator=g, dtype=torch.float64).to(dev)
-        k0 = _dd_launches(hpmm, ddchol)
-        t0 = time.perf_counter()
-        acg = cg_ops.AdaptiveCG()
-        X, ok = acg.solve_mat_checked(M, rhs)
-        torch.cuda.synchronize()
-        out["adaptive_cg_dd_s"] = time.perf_counter() - t0
-        X_ref = torch.linalg.solve(M, rhs)
-        # tests/test_cg.py's rtol 1e-5, normwise: at m = 4096 both solutions
-        # carry a forward error ~ cond eps |X|, which an entrywise hold would
-        # put on the smallest entries
-        err = float((X - X_ref).abs().max() / X_ref.abs().max())
-        kinds = [k for k, _, _ in acg.history]
-        nf = acg.n_factor
-        X2, ok2 = acg.solve_mat_checked(M + 1e-6 * torch.eye(m, dtype=M.dtype, device=dev), rhs)
-        launches = _dd_launches(hpmm, ddchol, k0)
-        print(f"[gated] AdaptiveCG, DD tier forced, m = {m}, cond 1e10: ok {ok}, tiers {kinds}, "
-              f"max |X - X_ref| / max |X_ref| {err:.3e}; a nearby M reuses the stale DD "
-              f"factor: ok {ok2}, factors {nf} -> {acg.n_factor}; (K8, K1, K1s) launches "
-              f"{launches}; {out['adaptive_cg_dd_s']:.2f} s", flush=True)
-        _require(ok and ok2 and "factor_dd" in kinds and acg.n_factor == nf and err < 1e-5
-                 and launches[0] > 0, "AdaptiveCG's DD tier failed its holds")
-        # refine_solve, pre-inverted and with the Ozaki residual, at m = 8192
-        m = 8192
-        M = _spd_card(torch, m, 1e6, 9, dev)
-        g = torch.Generator(device="cpu").manual_seed(10)
-        B = torch.randn((m, 8), generator=g, dtype=torch.float64).to(dev)
-        X_ref = torch.linalg.solve(M, B)
-        scale = float(X_ref.abs().max())
-        L, s, ok = cg_ops._equilibrated_factor(M, f32=True)
-        Linv, _, ok_inv = cg_ops._equilibrated_factor(M, f32=True, inv=True)
-        k0 = _dd_launches(hpmm, ddchol)
-        X_inv, st_inv, it_inv = cg_ops.refine_solve(M, Linv, s, B, pre_inverted=True)
-        X_hp, st_hp, it_hp = cg_ops.refine_solve(M, L, s, B, hp_residual=True)
-        launches = _dd_launches(hpmm, ddchol, k0)
-        e_inv = float((X_inv - X_ref).abs().max()) / scale
-        e_hp = float((X_hp - X_ref).abs().max()) / scale
-        # refine_solve accepts below max(1e-10, 1e-10 |B|, 16 eps (|B| +
-        # |M| |X|)), eps the residual's (2^-52 in f64, 2^-45 through hpmm):
-        # held, in f64, to twice that; the forward error then stays below
-        # cond times the floor (tests/test_cg.py's 1e-9 and 1e-7 are that
-        # bound at its m = 600 and 384)
-        mnorm = float(M.abs().sum(1).max())
-        bnorm = float(B.norm(dim=0).max())
-
-        def backward(X, eps):
-            res = float((B - M @ X).norm(dim=0).max())
-            xnorm = float(X.norm(dim=0).max())
-            return res / max(1e-10, 1e-10 * bnorm, 16.0 * eps * (bnorm + mnorm * xnorm))
-
-        b_inv, b_hp = backward(X_inv, 2.0 ** -52), backward(X_hp, 2.0 ** -45)
-        print(f"[gated] refine_solve at m = {m}, cond 1e6: pre_inverted status {st_inv} in "
-              f"{it_inv} sweeps, forward err {e_inv:.3e}, residual / floor {b_inv:.3f}; "
-              f"hp_residual status {st_hp} in {it_hp} sweeps, forward err {e_hp:.3e}, "
-              f"residual / floor {b_hp:.3f}; (K8, K1, K1s) launches {launches}", flush=True)
-        _require(bool(ok) and bool(ok_inv) and st_inv == st_hp == cg_ops.STATUS_OK
-                 and b_inv <= 2.0 and b_hp <= 2.0 and e_inv < 1e6 * 16 * 2.0 ** -52
-                 and e_hp < 1e6 * 16 * 2.0 ** -44 and launches[1] > 0,
-                 "refine_solve's gated tiers failed their holds")
-        del M, B, X_ref, L, Linv, X_inv, X_hp
-        # the check-time DD solve against the f64 ladder, m = 4096
-        m = 4096
-        M = _spd_card(torch, m, 1e9, 21, dev)
-        g = torch.Generator(device="cpu").manual_seed(22)
-        rhs = torch.randn((m,), generator=g, dtype=torch.float64).to(dev)
-        dy = dimacs._dd_solve_checked(M, rhs)
-        ok, dy_ref = dimacs._chol_solve_ladder(M, rhs)
-        e_dy = float((dy - dy_ref).abs().max() / dy_ref.abs().max())
-        # dy is accepted at the refinement's backward-stable floor (16 eps64
-        # (|b| + |M| |dy|)): held to it, and to the f64 ladder's dy within
-        # cond eps64, what two backward-stable solves may differ by
-        # (tests/test_cg.py's 1e-9 is the JAX pair's margin at m = 96)
-        res = float((M @ dy - rhs).norm())
-        floor = 16.0 * 2.0 ** -52 * (float(rhs.norm()) + float(M.abs().sum(1).max())
-                                     * float(dy.norm()))
-        bad = dimacs._dd_solve_checked(M - 5.0 * torch.eye(m, dtype=M.dtype, device=dev), rhs)
-        print(f"[gated] dimacs._dd_solve_checked at m = {m}, cond 1e9: residual / floor "
-              f"{res / floor:.3f}, against _chol_solve_ladder {e_dy:.3e} (cond eps64 "
-              f"{1e9 * 2.0 ** -52:.3e}); on an indefinite M: "
-              f"{'None (falls back)' if bad is None else 'a solution'}", flush=True)
-        _require(ok and res <= floor and e_dy < 1e9 * 2.0 ** -52 and bad is None,
-                 "_dd_solve_checked failed its holds")
-        del M
-        # the recovery congruence through hpmm at n = 8192
-        n = 8192
-        g = torch.Generator(device="cpu").manual_seed(5)
-        U = _spd_card(torch, n, 1e3, 6, dev)[None]
-        W = torch.randn((1, n, n), generator=g, dtype=torch.float64).to(dev)
-        W = 0.5 * (W + W.mT)
-        k0 = _dd_launches(hpmm, ddchol)
-        got = dimacs._uwu(U, W)
-        launches = _dd_launches(hpmm, ddchol, k0)
-        want = U @ W @ U
-        # each Ozaki product errs by ~2^-45 of |A| |B| entrywise, so the
-        # chained pair is held against |U| |W| |U| (W's random signs cancel
-        # in U W U, not in that)
-        size = float((U.abs() @ W.abs() @ U.abs()).max())
-        e_uwu = float((got - want).abs().max()) / size
-        print(f"[gated] dimacs._uwu at n = {n} through hpmm against the f64 product: "
-              f"max |diff| / max (|U| |W| |U|) {e_uwu:.3e} (/ max |U W U| "
-              f"{float((got - want).abs().max() / want.abs().max()):.3e}); (K8, K1, K1s) "
-              f"launches {launches}", flush=True)
-        _require(e_uwu < 1e-12 and launches[1:] == (2, 4), "_uwu through hpmm failed its holds")
-    finally:
-        device_mod.is_tpu = saved
-
-
 def _batch_phase(torch, hpmm, profiled_solve):
     """solve_batch on the card: three fleets at the sizes users batch,
     each instance held to its own solo (default, fused) solve of this run.
@@ -2121,7 +1973,6 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         dd_launches = _dd_phase(torch, solve_sdpa_file, instances, hpmm,
                                 fused_walls["maxG51"], tmp)
-    _gated_phase(torch, hpmm, dev)
 
     # -- the mesh path: one NCCL rank here, then four gloo ranks ----------
     mesh1 = _mesh1_phase(instances, dict(dense_d_obj, gpp500=gpp_d_obj))

@@ -14,16 +14,6 @@ The loops run on the host and read one scalar per step (the JAX package
 runs them as one ``lax.while_loop``).  ``factor_scaled_f32`` is the
 inverted f32 factor behind the preconditioner of the matrix-free operator
 (solver.algo).
-
-Three tiers were written for a TPU, where f64 is emulated, and are gated
-by module-level functions as in the JAX package: the pre-inverted f32
-preconditioner (:func:`use_inverted_precond`, m >= 512), AdaptiveCG's
-double-single full-precision tier (:func:`use_dd_full_tier`, m >= 4096:
-ops.ddchol's factor, pre-inverted, applied through the Ozaki matmul) and
-the Ozaki residual product of the refinement (:func:`use_hp_residual`,
-m >= 8192).  Each gate also requires ``utils.device.is_tpu()``, which is
-false wherever the port runs, so they are off by default; tests force
-them on with monkeypatch.
 """
 
 from __future__ import annotations
@@ -33,7 +23,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from hdsdp_tpu_torch.ops import chol as chol_ops
 from hdsdp_tpu_torch.utils import device, profile
@@ -104,29 +93,7 @@ def pcg(M, rhs, precond, max_iter: int, restart_freq: int = 20,
     return CGResult(x=x, status=status, iters=it, resi_norm=torch.linalg.vector_norm(r))
 
 
-def use_inverted_precond(m: int) -> bool:
-    """Gate of the pre-inverted preconditioner: on a TPU XLA's multi-RHS
-    triangular solve is slow and allocates an [k, m, m] temporary, so the
-    JAX package inverts the f32 factor once (ops.chol.blocked_tri_inverse)
-    and applies it as two matmuls per sweep from m = 512 on."""
-    return m >= 512 and device.is_tpu()
-
-
-def use_dd_full_tier(m: int) -> bool:
-    """Gate of AdaptiveCG's double-single full-precision tier: on a TPU at
-    m >= 4096 the escalation past f32 is the DD blocked factor (ops.ddchol,
-    ~2^-45, kappa to ~3e13) instead of XLA's emulated f64 Cholesky."""
-    return m >= 4096 and device.is_tpu()
-
-
-def use_hp_residual(m: int) -> bool:
-    """Gate of the Ozaki residual product of the refinement: on a TPU at
-    m >= 8192 R = B - M X runs through ops.hpmm with M sliced once per
-    factorization, where XLA's emulated f64 product expands M eightfold."""
-    return m >= 8192 and device.is_tpu()
-
-
-def _equilibrated_factor(M: torch.Tensor, f32: bool = True, inv: bool = False):
+def _equilibrated_factor(M: torch.Tensor, f32: bool = True):
     """Jacobi-equilibrated Cholesky preconditioner of an f64 SPD M.
 
     D^-1/2 M D^-1/2 has unit diagonal and entries in [-1, 1] (SPD), so an
@@ -138,22 +105,13 @@ def _equilibrated_factor(M: torch.Tensor, f32: bool = True, inv: bool = False):
     package reads the same failure from non-finite entries of L).
 
     M may carry a leading instance axis ([N, m, m], a fleet of
-    solver.batch): s, L and ok then carry it too, one factor per instance.
-
-    ``inv`` returns L^-1 (ops.chol.blocked_tri_inverse) instead of L, the
-    pre-inverted form of :func:`use_inverted_precond` (one [m, m] M only);
-    a near-zero factor diagonal that overflows the explicit inverse fails
-    ``ok`` here, at factor time."""
+    solver.batch): s, L and ok then carry it too, one factor per instance."""
     d = torch.diagonal(M, dim1=-2, dim2=-1)
     s = torch.rsqrt(torch.where(d > 0.0, d, 1.0))
     Ms = M * s[..., :, None] * s[..., None, :]
     if f32:
         Ms = Ms.to(torch.float32)
     ok, L = chol_ops.psd_check(Ms, tuple(M.shape[:-2]))
-    if inv:
-        eye = torch.eye(M.shape[0], dtype=L.dtype, device=L.device)
-        L = chol_ops.blocked_tri_inverse(torch.where(ok, L, eye))
-        ok = ok & torch.isfinite(L).all()
     return L, s, ok
 
 
@@ -193,8 +151,7 @@ def chol_apply(L: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
 
 
 def refine_solve(M, L, s, B, max_iter: int = 40, abs_tol: float = 1e-10,
-                 rel_tol: float = 1e-10, pre_inverted: bool = False,
-                 hp_residual: bool = False, apply=None, live=None):
+                 rel_tol: float = 1e-10, live=None):
     """Mixed-precision iterative refinement: f32 (or f64) factor of the
     equilibrated M, f64 residuals.  Solves M X = B [m, k]:
 
@@ -208,12 +165,6 @@ def refine_solve(M, L, s, B, max_iter: int = 40, abs_tol: float = 1e-10,
     (|B| + |M|_inf |X|)): the residual a backward-stable direct solve
     would leave; demanding less is unreachable at high kappa.
 
-    ``pre_inverted``: L is L^-1 and the apply is two matrix products.
-    ``hp_residual``: M X runs through the Ozaki matmul (M sliced once),
-    and eps in the acceptance level is its 2^-45.
-    ``apply``: a preconditioner R -> ~M^-1 R that takes the place of
-    (L, s), which are then unused (AdaptiveCG's DD tier).
-
     A FLEET (solver.batch): M [N, m, m], L, s and B [N, m, k] with a
     leading instance axis, each instance refined on its own, as
     ``jax.vmap`` runs the JAX package's while_loop: the sweeps go on
@@ -225,16 +176,8 @@ def refine_solve(M, L, s, B, max_iter: int = 40, abs_tol: float = 1e-10,
 
     Returns (X, status, sweeps).  One host read of the norms per sweep
     (of every instance's)."""
-    eps_res = 2.0 ** -45 if hp_residual else _EPS64
     fleet = M.ndim == 3
-    if hp_residual:
-        from hdsdp_tpu_torch.ops import hpmm
-
-        m_sl, e_m = hpmm.hpmm_slice_a(M)
-
-        def mdot(X):
-            return hpmm.hpmm_presliced(m_sl, e_m, X)
-    elif fleet:
+    if fleet:
         def mdot(X):
             return torch.stack([device.jdot(Mi, Xi) for Mi, Xi in zip(M, X)])
     else:
@@ -244,11 +187,8 @@ def refine_solve(M, L, s, B, max_iter: int = 40, abs_tol: float = 1e-10,
             return device.jdot(M, X)
 
     def apply_p(R):
-        if apply is not None:
-            return apply(R)
         U = (s[..., :, None] * R).to(L.dtype)
-        T = L.mT @ (L @ U) if pre_inverted else chol_apply(L, U)
-        return s[..., :, None] * T.to(torch.float64)
+        return s[..., :, None] * chol_apply(L, U).to(torch.float64)
 
     def colnorm(A):
         return torch.linalg.vector_norm(A, dim=-2).amax(-1)
@@ -261,7 +201,7 @@ def refine_solve(M, L, s, B, max_iter: int = 40, abs_tol: float = 1e-10,
         profile.count("host_reads")
         rn, xn = torch.stack([colnorm(R), colnorm(X)]).cpu().numpy()
         tol = np.maximum(np.maximum(abs_tol, rel_tol * bnorm),
-                         16.0 * eps_res * (bnorm + mnorm * xn))
+                         16.0 * _EPS64 * (bnorm + mnorm * xn))
         return rn, tol
 
     X = apply_p(B)
@@ -316,8 +256,7 @@ class AdaptiveCG:
         self.abs_tol = abs_tol
         self.rel_tol = rel_tol
         self.reuse_threshold = reuse_threshold
-        # stale preconditioner: (L, s, pre-inverted) with L f32 or f64, or
-        # ((Gh, Gl), None, "dd"): G = L^-1 of the double-single tier
+        # stale preconditioner: (L, s) with L f32 or f64
         self.chol_fac = None
         self._fresh = False  # factor computed for the current M
         self._f64_left = 0  # systems left before retrying the f32 tier
@@ -335,25 +274,7 @@ class AdaptiveCG:
 
     def _factor(self, M, f32: bool) -> bool:
         t0 = time.time()
-        if not f32 and use_dd_full_tier(M.shape[0]):
-            # the full-precision tier written for a TPU: the DD blocked
-            # factor (~2^-45, kappa to ~3e13), pre-inverted so that every
-            # apply is two Ozaki products
-            from hdsdp_tpu_torch.ops import ddchol
-
-            fac = ddchol.factor(M)
-            self.n_factor += 1
-            self._fresh = True
-            profile.count("host_reads")
-            if not bool(ddchol.ok(fac)):
-                self.chol_fac = None
-                self.history.append(("factor_dd", "fail", time.time() - t0))
-                return False
-            self.chol_fac = (ddchol.tri_inverse(fac), None, "dd")
-            self.history.append(("factor_dd", "ok", time.time() - t0))
-            return True
-        inv = f32 and use_inverted_precond(M.shape[0])
-        L, s, ok = _equilibrated_factor(M, f32=f32, inv=inv)
+        L, s, ok = _equilibrated_factor(M, f32=f32)
         self.n_factor += 1
         self._fresh = True
         kind = "factor32" if f32 else "factor64"
@@ -362,40 +283,17 @@ class AdaptiveCG:
             self.chol_fac = None
             self.history.append((kind, "fail", time.time() - t0))
             return False
-        self.chol_fac = (L, s, inv)
+        self.chol_fac = (L, s)
         self.history.append((kind, "ok", time.time() - t0))
         return True
 
-    def _dd_apply(self, m):
-        """The DD tier's preconditioner: A^-1 R = G^T (G R) with G = L^-1
-        the pre-inverted DD factor, both products through the Ozaki
-        matmul, R padded to G's size and the result cut back."""
-        from hdsdp_tpu_torch.ops import dd, hpmm
-
-        gh, gl = self.chol_fac[0]
-        npad = gh.shape[0]
-
-        def apply(R):
-            rh, rl = dd.from_f64(F.pad(R, (0, 0, 0, npad - m)))
-            yh, yl = hpmm.hpmm_dd(gh, gl, rh, rl)
-            xh, xl = hpmm.hpmm_dd(gh.T, gl.T, yh, yl)
-            return dd.to_f64(xh, xl)[:m]
-
-        return apply
-
     def _refine(self, M, rhs_mat):
         t0 = time.time()
-        L, s, inv = self.chol_fac
-        dd_tier = inv == "dd"
+        L, s = self.chol_fac
         X, status, iters = refine_solve(
-            M, L, s, rhs_mat, max_iter=self.max_iter - dd_tier,
+            M, L, s, rhs_mat, max_iter=self.max_iter,
             abs_tol=self.abs_tol, rel_tol=self.rel_tol,
-            pre_inverted=inv, hp_residual=use_hp_residual(M.shape[0]),
-            apply=self._dd_apply(M.shape[0]) if dd_tier else None,
         )
-        # the JAX package's DD tier counts residuals (one more than the
-        # sweeps) and stops at max_iter of them
-        iters += dd_tier
         self.last_iters = int(iters)
         self.last_status = int(status)
         self.history.append((
@@ -442,7 +340,7 @@ class AdaptiveCG:
                 if self.last_iters > self.reuse_threshold:
                     self.chol_fac = None  # refresh on the next system
                 return X, True
-            full_tier = self.chol_fac[2] == "dd" or self.chol_fac[0].dtype == torch.float64
+            full_tier = self.chol_fac[0].dtype == torch.float64
             self.chol_fac = None
             if self._fresh and full_tier:
                 return X, False  # fresh full-precision factor failed

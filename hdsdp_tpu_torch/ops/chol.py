@@ -67,10 +67,7 @@ def chol_inverse(L: torch.Tensor, use_dd: bool = False) -> torch.Tensor:
     ``use_dd`` routes a single large block ([1, n, n], n >= 512; [N, 1, n,
     n] for a fleet) through the double-single blocked inverse built from
     the existing f64 factor (ops.ddchol.spd_inverse_from_f64_tri, whose
-    strips run through the Ozaki matmul).  The JAX package forces that
-    route at n >= 8192 on a TPU, where XLA cannot compile the n-RHS
-    triangular solve; the same gate (utils.device.is_tpu) is false on every
-    device the port runs on.
+    strips run through the Ozaki matmul).
 
     Each call counts one ``sinv`` and records one ``sinv`` span (the
     host's enqueue; no sync) while a ``utils.profile`` recording is open."""
@@ -78,10 +75,6 @@ def chol_inverse(L: torch.Tensor, use_dd: bool = False) -> torch.Tensor:
     with profile.span("sinv"):
         n = L.shape[-1]
         single = L.ndim >= 3 and L.shape[-3] == 1
-        if not use_dd and single and n >= 8192:
-            from hdsdp_tpu_torch.utils import device
-
-            use_dd = device.is_tpu()
         if use_dd and single and n >= 512:
             from hdsdp_tpu_torch.ops import ddchol
 
@@ -98,44 +91,6 @@ def chol_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     y = torch.linalg.solve_triangular(L, B, upper=False)
     x = torch.linalg.solve_triangular(L.mT, y, upper=True)
     return x[..., 0] if vec else x
-
-
-def blocked_tri_inverse(L: torch.Tensor, block: int = 512) -> torch.Tensor:
-    """L^-1 of a lower-triangular [m, m] matrix by the row-block forward
-    recurrence
-
-        X[i, :] = W_i (E_i - L[i, :i] X[:i, :]),   W_i = inv(L[i, i]),
-
-    one [B, m] x [m, m] product per panel (the JAX package's replacement
-    for XLA's multi-RHS triangular solve on a TPU; the port reaches it
-    through the gated pre-inverted preconditioner of ops.cg).  m is padded
-    to a multiple of 128 with an identity tail (exact), and the panel is
-    the largest power-of-two multiple of 128 that divides the padded size
-    and fits ``block``.  The diagonal-block inverses W are one batched
-    small triangular solve."""
-    m = L.shape[0]
-    mp = -(-m // 128) * 128
-    B = 128
-    while B * 2 <= min(block, mp) and mp % (B * 2) == 0:
-        B *= 2
-    if mp != m:
-        Lp = torch.eye(mp, dtype=L.dtype, device=L.device)
-        Lp[:m, :m] = L
-    else:
-        Lp = L
-    npan = mp // B
-    diag_blocks = torch.stack([Lp[k * B:(k + 1) * B, k * B:(k + 1) * B] for k in range(npan)])
-    eye = torch.eye(B, dtype=L.dtype, device=L.device).expand_as(diag_blocks)
-    W = torch.linalg.solve_triangular(diag_blocks, eye, upper=False)
-    X = torch.zeros((mp, mp), dtype=L.dtype, device=L.device)
-    for i in range(npan):
-        row0 = i * B
-        # columns >= row0 contribute nothing (those rows of X are still
-        # zero) but the diagonal block, which must not enter the recurrence
-        prod = Lp[row0:row0 + B, :row0] @ X[:row0]
-        X[row0:row0 + B] = -(W[i] @ prod)
-        X[row0:row0 + B, row0:row0 + B] = W[i]
-    return X[:m, :m]
 
 
 def congruence(L: torch.Tensor, W: torch.Tensor) -> torch.Tensor:

@@ -45,8 +45,8 @@ with n >= 512 is the DD blocked Cholesky (``cones.cone_dd``); with
 ``kkt_fp="dd"`` the Schur factor is the DD Cholesky with its 6-rung
 regularization ladder, solved by f64 iterative refinement against the
 kept M (``_dd_refined_solve``), escalating to the f64 ladder when the
-refinement stalls.  Their "auto" settings engage on a TPU only, as in the
-JAX package (utils.device.is_tpu).  On a mesh, as in the JAX package,
+refinement stalls.  Every other setting of the two, "auto" included,
+takes the f64 factors.  On a mesh, as in the JAX package,
 ``cone_fp="dd"`` holds on every rank (both mesh systems inherit
 ``ConeSystem.factor``) and ``kkt_fp="dd"`` changes nothing: the Schur
 factor leaves through the row-sharded branch of ``factor_kkt`` before
@@ -75,7 +75,7 @@ from hdsdp_tpu_torch.ops.cg import AdaptiveCG, factor_scaled_f32
 from hdsdp_tpu_torch.ops.ratio import vector_ratio_test
 from hdsdp_tpu_torch.solver.cones import ConeSystem, chunk_starts
 from hdsdp_tpu_torch.solver.params import Params, adjust_params
-from hdsdp_tpu_torch.utils import device, profile
+from hdsdp_tpu_torch.utils import profile
 from hdsdp_tpu_torch.utils.device import jdot, jdtype, jlift, working_dtype
 from hdsdp_tpu_torch.utils.log import Logger
 
@@ -191,7 +191,7 @@ class DualIPM:
             self.cones = ShardedConeSystem(prob, mesh, obj_scal=self.obj_scal, dtype=self.dtype)
         self.cones.ratio_mode = params.ratio_test
         self.cones.lanczos_dim = params.lanczos_dim
-        self.cones.cone_dd = self._use_cone_dd(prob)
+        self.cones.cone_dd = self._use_cone_dd()
         self.cones.kkt_hp = params.kkt_hp == "on"
         self.cones.dual_hp = self._use_dual_hp()
         # matrix-free Schur operator (sparse-Schur analogue, ref
@@ -297,31 +297,15 @@ class DualIPM:
             return False
         return self.m >= self.params.kkt_free_threshold
 
-    def _use_cone_dd(self, prob) -> bool:
-        """The DD backend of the cone factor and the interior checks:
-        "dd" forces it; "auto" takes it on a TPU for a single large block
-        (the JAX package's gate: there XLA's emulated f64 Cholesky
-        dominates the iteration), so never here."""
-        fp = self.params.cone_fp
-        if fp == "dd":
-            return True
-        if fp != "auto" or self.dtype != torch.float64 or self.mesh is not None:
-            return False
-        if max(prob.block_dims, default=0) < self.params.cone_dd_threshold:
-            return False
-        if any(g.nblk != 1 for g in prob.groups):
-            return False
-        return device.is_tpu()
+    def _use_cone_dd(self) -> bool:
+        """The DD backend of the cone factor and the interior checks: on
+        with cone_fp="dd" only ("auto" is the f64 factor)."""
+        return self.params.cone_fp == "dd"
 
     def _use_dd(self) -> bool:
-        """The DD backend of the Schur factor: "dd" forces it; "auto"
-        takes it on a TPU from kkt_dd_threshold rows on, so never here."""
-        fp = self.params.kkt_fp
-        if fp == "dd":
-            return True
-        if fp != "auto" or self.dtype != torch.float64 or self.m < self.params.kkt_dd_threshold:
-            return False
-        return device.is_tpu()
+        """The DD backend of the Schur factor: on with kkt_fp="dd" only
+        ("auto" is the f64 factor)."""
+        return self.params.kkt_fp == "dd"
 
     def _use_dual_hp(self) -> bool:
         """Ozaki dual-slack assembly: only when kkt_hp is on and the

@@ -30,7 +30,7 @@ import torch
 from hdsdp_tpu_torch.ops import chol as chol_ops
 from hdsdp_tpu_torch.ops import schur as schur_ops
 from hdsdp_tpu_torch.solver import cones as cone_ops
-from hdsdp_tpu_torch.utils import device, profile
+from hdsdp_tpu_torch.utils import profile
 from hdsdp_tpu_torch.utils.device import jdot, jlift
 
 # above this block dimension the min-eigenvalue check switches from exact
@@ -82,14 +82,7 @@ def _lanczos_min_one(X: torch.Tensor, krylov: int = 64, restarts: int = 3) -> to
 
 def _try_chol_ok(A: torch.Tensor) -> bool:
     """The reference's PSD predicate: a Cholesky succeeds (ref
-    HFpLinsysPsdCheck, hdsdp_linsolver.c:1112-1144).  On a TPU the JAX
-    package takes the DD blocked factor (ops.ddchol) here; the same gate
-    (utils.device.is_tpu) is off wherever the port runs."""
-    if device.is_tpu():
-        from hdsdp_tpu_torch.ops import ddchol
-
-        profile.count("host_reads")
-        return bool(ddchol.ok(ddchol.factor(A)))
+    HFpLinsysPsdCheck, hdsdp_linsolver.c:1112-1144)."""
     ok, _ = chol_ops.psd_check(A)
     profile.count("host_reads")
     return bool(ok)
@@ -111,20 +104,6 @@ def _certified_block_min_eval(X: torch.Tensor, est: float) -> float:
         if _try_chol_ok(X if d == 0.0 else X + d * eye):
             return -(d + eps)
     return min(est, -deltas[-1])
-
-
-def _uwu(U: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """The recovery congruence U W U per block [g, n, n].  On a TPU at
-    n >= 8192 the JAX package runs one block's two products through the
-    Ozaki matmul (ops.hpmm, ~2^-45 relative, far below the 1e-2 DIMACS
-    gate), where XLA's emulated f64 product would not compile; the gate
-    (utils.device.is_tpu) is off wherever the port runs."""
-    n = U.shape[-1]
-    if U.ndim == 3 and U.shape[0] == 1 and n >= 8192 and device.is_tpu():
-        from hdsdp_tpu_torch.ops import hpmm
-
-        return hpmm.hpmm(hpmm.hpmm(U[0], W[0]), U[0])[None]
-    return U @ W @ U
 
 
 def _batch_min_eval(Xg: torch.Tensor) -> torch.Tensor:
@@ -237,26 +216,6 @@ def _chol_solve_ladder(M: torch.Tensor, rhs: torch.Tensor):
     return True, x
 
 
-def _dd_solve_checked(M: torch.Tensor, rhs: torch.Tensor):
-    """The check-time dense solve of the JAX package's TPU path: the DD
-    blocked factor (AdaptiveCG's full-precision tier, ops.ddchol) plus
-    refinement sweeps against the ORIGINAL f64 M down to the
-    backward-stable floor, so dy is as exact as the f64 ladder's.  Returns
-    dy, or None when the tier is off, the factor fails or the refinement
-    stalls (the caller then takes the f64 ladder).  The tier guard is its
-    own: the JAX helper assumes its caller checked it
-    (hdsdp_tpu/solver/dimacs.py:327)."""
-    from hdsdp_tpu_torch.ops import cg as cg_ops
-
-    if not cg_ops.use_dd_full_tier(M.shape[0]):
-        return None
-    acg = cg_ops.AdaptiveCG()
-    if not acg._factor(M, f32=False):
-        return None
-    X, ok = acg._refine(M, rhs[:, None])
-    return X[:, 0] if ok else None
-
-
 def _restarted_pcg(solve, matvec, rhs, runs: int = 8):
     """X with M X ~ rhs from up to ``runs`` CG runs, each restarted on the
     residual of the iterate so far (a restart drops the search directions,
@@ -286,9 +245,6 @@ def _solve_maker_dy(ipm, Us, sbar_lp, M, d_bound, rhs):
     mesh alike (the JAX package's check calls its module-level
     ``_kkt_pcg``, not the sharded matvec): no collective per CG step."""
     if M is not None:
-        dy = _dd_solve_checked(M, rhs)
-        if dy is not None:
-            return dy
         ok, dy = _chol_solve_ladder(M, rhs)
         return dy if ok else None
     cones = ipm.cones
@@ -354,7 +310,7 @@ def _recover(cones, Us, sbar_lp, mk_mu, dy, hp: bool):
     X_list = []
     for U, Wg in zip(Us, W):
         U, Wg = jlift(U, Wg)
-        X = jlift(U + _uwu(U, Wg), by=(mk_mu,))[0] * mk_mu
+        X = jlift(U + U @ Wg @ U, by=(mk_mu,))[0] * mk_mu
         X_list.append(0.5 * (X + X.mT))
     x_lp = None
     if cones.has_lp:

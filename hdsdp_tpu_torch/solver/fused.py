@@ -73,8 +73,7 @@ donation, ``raw`` for vmap.  The trace-time dicts ``_RATIO_CFG``,
 ``_KKT_CFG`` and ``_CONE_CFG`` are one ``Config`` on ``Cones``; with
 ``cone_dd`` (``_CONE_CFG["dd"]``, Params.cone_fp) the cone factor of
 every interior check is the double-single Cholesky (ops.ddchol, kernel
-K8).  Under kkt_mp="on" the refinement takes the TPU-gated tiers of ops.cg
-(pre-inverted factor, Ozaki residual) when their gates are on.
+K8).
 """
 
 from __future__ import annotations
@@ -492,32 +491,26 @@ def _factor_m_mp(c: Cones, M):
     that need it (``_narrow``), and their count is kept per instance in
     ``Cones.mp_f64`` (of ``Cones.mp_factors`` factors).
 
-    The TPU-gated tiers ride in the factor tuple, so that solve_m applies
-    the factor the way it was built: ``inv`` (ops.cg.use_inverted_precond)
-    stores L^-1, ``hp`` (ops.cg.use_hp_residual) takes the residuals
-    through the Ozaki matmul and defers the f64 fallback factor to the
-    solve that needs it (no [m, m] f64 buffer on the common f32 path)."""
+    Returns the factor tuple (M, L32, s, Lf64, need64) and ok; Lf64 is None
+    when no instance needs it."""
     m = M.shape[-1]
-    inv = cg_ops.use_inverted_precond(m)
-    hp = cg_ops.use_hp_residual(m)
-    L32, s, ok32 = cg_ops._equilibrated_factor(M, f32=True, inv=inv)
+    L32, s, ok32 = cg_ops._equilibrated_factor(M, f32=True)
     L32 = _where(ok32, L32, torch.eye(m, dtype=torch.float32, device=M.device))
     probe = torch.ones(M.shape[:-1] + (1,), dtype=M.dtype, device=M.device)
     _, p_status, _ = cg_ops.refine_solve(M, L32, s, probe, max_iter=20,
-                                         pre_inverted=inv, hp_residual=hp,
                                          live=c.live if c.fleet else None)
     need64 = np.logical_or(np.logical_not(_read(c, ok32)), p_status != cg_ops.STATUS_OK)
     if not c.fleet:
         need64 = bool(need64)
     c.mp_factors = c.mp_factors + np.asarray(c.live, dtype=int)
     c.mp_f64 = c.mp_f64 + np.asarray(np.logical_and(c.live, need64), dtype=int)
-    if _any(c, need64) and not hp:
+    if _any(c, need64):
         with _narrow(c, need64):
             Lf64, ok = _factor_m_f64(c, M)
         ok = _select(c, need64, ok, c.yes)
     else:
         Lf64, ok = None, c.yes
-    return (M, L32, s, Lf64, need64, inv, hp), ok
+    return (M, L32, s, Lf64, need64), ok
 
 
 def factor_m(c: Cones, M):
@@ -534,19 +527,16 @@ def solve_m(c: Cones, Lm, rhs):
     with profile.span("solve_m"):
         if not c.cfg.mp:
             return chol_ops.chol_solve(Lm, rhs)
-        M, L32, s, Lf64, need64, inv, hp = Lm
+        M, L32, s, Lf64, need64 = Lm
         vec = rhs.ndim == M.ndim - 1
         rhs2 = rhs[..., None] if vec else rhs
 
         def direct():
-            L = Lf64
-            if L is None:  # deferred f64 tier (hp sizes)
-                L, _ = _factor_m_f64(c, M)
-            return chol_ops.chol_solve(L, rhs2)
+            return chol_ops.chol_solve(Lf64, rhs2)
 
         def refine():
-            X, _, _ = cg_ops.refine_solve(M, L32, s, rhs2, max_iter=30, pre_inverted=inv,
-                                          hp_residual=hp, live=c.live if c.fleet else None)
+            X, _, _ = cg_ops.refine_solve(M, L32, s, rhs2, max_iter=30,
+                                          live=c.live if c.fleet else None)
             return X
 
         X = _cond(c, need64, direct, refine)
@@ -1428,7 +1418,7 @@ def _config_from_ipm(ipm) -> Config:
         ratio_mode=p.ratio_test,
         krylov=p.lanczos_dim,
         kwarm=p.lanczos_warm_dim,
-        # "auto" engages mixed precision on a TPU only (hdsdp_tpu's _use_mp)
+        # "auto" is the f64 factor on the port
         mp=p.kkt_mp == "on",
         hp=bool(ipm.cones.kkt_hp),
         dhp=bool(ipm.cones.dual_hp),

@@ -90,24 +90,18 @@ class Params:
     op_precond_refresh_iters: int = 80
     # double-single Cholesky (ops.ddchol, kernel K8 on the card) of M
     # (kkt_fp) and of single cone blocks with n >= 512 (cone_fp): "dd"
-    # forces it; "auto" engages it on a TPU only (at the thresholds), so
-    # never here; "xla"/"off" keep the f64 factor
+    # takes it; "auto", "xla" and "off" are the f64 factor on the port
     kkt_fp: str = "auto"
-    kkt_dd_threshold: int = 768
     cone_fp: str = "auto"
-    cone_dd_threshold: int = 768
     # mixed-precision Schur solves of the fused bodies: "on" factors M in
-    # f32 and refines in f64; "auto" engages it on a TPU only, so never
-    # here (unused by the host loop)
+    # f32 and refines in f64; "auto" and "off" are the f64 factor on the
+    # port (unused by the host loop)
     kkt_mp: str = "auto"
-    kkt_mp_threshold: int = 768
     # Ozaki-sliced Schur ASSEMBLY (slot-major groups): FU = Fs@U and the
     # pair products Fs_j U Fs_k^T run through ops.hpmm (~2^-45 relative)
     # instead of f64 matmuls.  "on" forces it; "auto" and "off" keep f64
     # (the card has native f64, so no size gate engages it by itself).
     kkt_hp: str = "auto"
-    kkt_hp_threshold: int = 2048
-
 
 def adjust_params(params: Params, f: Features) -> Params:
     """Feature-driven auto-tuning (ref hdsdp.c:280-395, 136-278)."""

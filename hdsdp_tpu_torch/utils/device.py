@@ -82,15 +82,3 @@ def resolve_device(device) -> torch.device:
         raise ValueError(f"unsupported device {device!r}")
     return dev
 
-
-def is_tpu() -> bool:
-    """The JAX package's platform predicate (hdsdp_tpu/utils/platform.py),
-    which turns on the tiers written for a TPU, where f64 is emulated:
-    the inverted preconditioner, the double-single full-precision tier
-    and the Ozaki residual of ops.cg, the DD try-Cholesky and the Ozaki
-    recovery congruence of solver.dimacs, the forced DD inverse of
-    ops.chol at n >= 8192, and the "auto" settings of ``cone_fp`` and
-    ``kkt_fp``.  The port runs on CUDA cards and on the host, never on a
-    TPU, so it is False; the gates that read it are module-level functions
-    that tests force on with monkeypatch."""
-    return False

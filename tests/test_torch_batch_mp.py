@@ -51,6 +51,18 @@ def _spd(m, cond, seed):
     return (M + M.T) / 2
 
 
+def _colnorm(A):
+    return float(np.max(np.linalg.norm(A.reshape(A.shape[0], -1), axis=0)))
+
+
+def _accept_level(M, B, X, tol=1e-10):
+    """The residual (largest column 2-norm) below which ops.cg.refine_solve
+    accepts X at its default tolerances: max(abs_tol, rel_tol |B|, 16 eps
+    (|B| + |M|_inf |X|))."""
+    bnorm, mnorm = _colnorm(B), float(np.max(np.abs(M).sum(1)))
+    return max(tol, tol * bnorm, 16.0 * 2.0 ** -52 * (bnorm + mnorm * _colnorm(X)))
+
+
 def _cones(fleet):
     lead = (fleet,) if fleet else ()
     z = torch.zeros(lead + (M_SIZE,), dtype=torch.float64)
@@ -96,8 +108,15 @@ def test_fleet_factor_and_solve_repeat_the_solo_calls(factor_runs):
 
 def test_fleet_factor_and_solve_match_jax_vmap(factor_runs, monkeypatch):
     """Against jax.vmap of the JAX package's own _factor_m_mp and solve_m:
-    need64 equal per member; the refined member's solution within 1e-12
-    of its scale.  The member on the f64 branch (condition 1e10) is held
+    need64 equal per member.  The refined member (condition 1e2) is held to
+    refine_solve's own acceptance: its residual below the level at which
+    the refinement stops (``_accept_level``), and so within twice that
+    level times cond (|M^-1| = cond here, M's largest eigenvalue being 1)
+    of JAX's, which stops by the same rule.  The two f32 factors that drive
+    the sweeps round by host (torch's MKL and XLA), so the two stop at
+    different remainders below that level: the port's differed from JAX's
+    by 7.8e-11 against a scale of 75 on one CPU.  The member on the f64
+    branch (condition 1e10) is held
     as two backward-stable solves can be: its residual within 1e-12 of
     |M| |x|, and the two solutions within 1e-14 times the condition of
     their scale (two LAPACK solves of it differ by ~4e-8 relative)."""
@@ -122,7 +141,9 @@ def test_fleet_factor_and_solve_match_jax_vmap(factor_runs, monkeypatch):
             scale = max(1.0, float(np.max(np.abs(want[k]))))
             err = float(np.max(np.abs(got[k] - want[k])))
             if not fleet["need64"][k]:
-                assert err <= 1e-12 * scale
+                level = _accept_level(Ms[k], r[k], got[k])
+                assert _colnorm(Ms[k] @ got[k] - r[k]) <= level
+                assert err <= 2.0 * cond * level
                 continue
             res = float(np.max(np.abs(Ms[k] @ got[k] - r[k])))
             assert res <= 1e-12 * float(np.max(np.abs(Ms[k]).sum(1))) * scale

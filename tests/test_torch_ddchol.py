@@ -1,11 +1,14 @@
 """The port's double-single blocked Cholesky (ops/ddchol.py), its routes in
-ops/chol.py and solver/dimacs.py, and the kkt_fp="dd" solve, against the
+ops/chol.py, and the kkt_fp="dd" solve, against the
 JAX package on identical seeded numpy inputs.
 
 Bit for bit where both sides run the same IEEE operations: the panel
 factor against the JAX ``_panel_factor`` run op by op (``jax.disable_jit``),
-a fleet against its single factors, and ``spd_inverse_from_f64_tri`` (the
-factor comes from f64, the strips through the Ozaki matmul).  Jitted JAX
+a fleet against its single factors, and ``spd_inverse`` of the factor that
+``factor_from_f64_tri`` wraps, given the same diagonal-block inverses W.
+Those W are f64 triangular solves, torch's (MKL) and XLA's, whose bits
+differ by host CPU: so ``spd_inverse_from_f64_tri`` from the f64 factor
+alone is held to the bound of its W (``_w_bound``).  Jitted JAX
 results are held to 1e-12 relative in f64: inside a jitted program XLA's
 CPU backend contracts a * b - c into fused multiply-adds, which moves the
 low words of Dekker's two_prod (the port, like the kernel K8 on the card,
@@ -55,6 +58,15 @@ def _bits(t, j) -> bool:
     iv = np.int32 if t.dtype == np.float32 else np.int64
     return bool(t.shape == j.shape and np.array_equal(nt, nj)
                 and np.array_equal(np.where(nt, 0, t).view(iv), np.where(nj, 0, j).view(iv)))
+
+
+def _w_bound(n, cond):
+    """How far two DD inverses from one f64 factor may lie apart when their
+    diagonal-block inverses W are two backward-stable f64 triangular solves
+    (torch's MKL and XLA's, which round differently on some CPUs): each W
+    within ~n u64 of the exact one, amplified by at most cond(A) through
+    the strips and G^T G."""
+    return n * 2.0 ** -53 * cond
 
 
 def _spd(rng, n, cond=1e3):
@@ -124,7 +136,13 @@ def test_factor_solve_inverses_against_jax(n, block):
     assert _rel(tdc.spd_inverse(ft, n), jdc.spd_inverse(fj, n)) < 1e-12
     L = np.linalg.cholesky(a)
     ut = tdc.spd_inverse_from_f64_tri(torch.as_tensor(L), block=block)
-    assert _bits(ut, jdc.spd_inverse_from_f64_tri(jnp.asarray(L), block=block))
+    assert _rel(ut, jdc.spd_inverse_from_f64_tri(jnp.asarray(L), block=block)) <= _w_bound(n, 10.0)
+    # given JAX's W, the port's strips and product are JAX's bit for bit
+    wj = jdc.factor_from_f64_tri(jnp.asarray(L), block=block)
+    wt = tdc.factor_from_f64_tri(torch.as_tensor(L), block=block)
+    assert _bits(wt.lh, wj.lh) and _bits(wt.ll, wj.ll)
+    same_w = wt._replace(wh=torch.as_tensor(np.asarray(wj.wh)), wl=torch.as_tensor(np.asarray(wj.wl)))
+    assert _bits(tdc.spd_inverse(same_w, n), jdc.spd_inverse(wj, n))
     assert _rel(tdc.chol_f64(torch.as_tensor(a), block=block), L) < 1e-12
 
 
@@ -174,7 +192,8 @@ def test_fleet_factor_bitwise_against_single_factors():
 def test_psd_factor_and_chol_inverse_use_dd_at_512():
     """ops.chol's DD routes at their threshold, n = 512: psd_factor through
     ddchol.factor (and a fleet's [N, 1, n, n]), chol_inverse through
-    ddchol.spd_inverse_from_f64_tri; below it both keep the f64 path."""
+    ddchol.spd_inverse_from_f64_tri (against JAX within ``_w_bound`` of S's
+    condition); below it both keep the f64 path."""
     rng = np.random.default_rng(14)
     S = (_spd(rng, 512, 1e5) + 1e-2 * np.eye(512))[None]
     okj, Lj = jchol.psd_factor(jnp.asarray(S), use_dd=True)
@@ -189,28 +208,20 @@ def test_psd_factor_and_chol_inverse_use_dd_at_512():
     L = np.linalg.cholesky(S)
     uj = jchol.chol_inverse(jnp.asarray(L), use_dd=True)
     ut = tchol.chol_inverse(torch.as_tensor(L), use_dd=True)
-    assert _bits(ut, uj) and _rel(ut, np.linalg.inv(S)) < 1e-10
+    assert _rel(ut, uj) <= _w_bound(512, np.linalg.cond(S[0]))
+    assert _rel(ut, np.linalg.inv(S)) < 1e-10
     small = torch.as_tensor(L[:, :511, :511])
     assert _rel(tchol.chol_inverse(small, use_dd=True), tchol.chol_inverse(small)) == 0.0
-
-
-@pytest.mark.parametrize("m,block", [(300, 512), (640, 512), (256, 128)])
-def test_blocked_tri_inverse(m, block):
-    rng = np.random.default_rng(m)
-    L = np.linalg.cholesky(_spd(rng, m, 1e4) + 1e-3 * np.eye(m))
-    xt = tchol.blocked_tri_inverse(torch.as_tensor(L), block=block)
-    assert _rel(xt, jchol.blocked_tri_inverse(jnp.asarray(L), block=block)) < 1e-12
-    assert _rel(xt @ torch.as_tensor(L), np.eye(m)) < 1e-10
-    x32 = tchol.blocked_tri_inverse(torch.as_tensor(L.astype(np.float32)), block=block)
-    assert x32.dtype == torch.float32
-    assert _rel(x32, jchol.blocked_tri_inverse(jnp.asarray(L.astype(np.float32)),
-                                               block=block)) < 1e-5
 
 
 def test_kkt_fp_dd_host_loop_matches_jax(monkeypatch):
     """gpp n = 40 on the host loop with the Schur factor by ddchol (m = 41,
     one 256-panel a factor) and f64 refinement, against the JAX package's
-    same run: status, iterations +-1, d_obj 1e-7."""
+    same run: status, d_obj 1e-7 and the DIMACS grade.  The iteration count
+    is not held: the last bits of the host BLAS's f64 products (its thread
+    count and code path) steer the endgame, where M's condition reaches
+    ~1e14, into more or fewer short steps (on one CPU the port took 22 at
+    eight threads and 28 at one, 26 on MKL's AVX2 path; JAX 22)."""
     from hdsdp_tpu_torch.solver import algo as talgo
 
     over = dict(fused=False, kkt_fp="dd")
@@ -225,8 +236,7 @@ def test_kkt_fp_dd_host_loop_matches_jax(monkeypatch):
     monkeypatch.setattr(talgo.DualIPM, "_direct_factor", direct)
     rt = TSolver(TProblem.from_sdpa(tsyn.gpp_sdpa(n=40, seed=0)), device="cpu",
                  verbose=False, **over).optimize()
-    assert rt.status == rj.status == "PRIMAL_DUAL_OPTIMAL"
-    assert abs(rt.n_iters - rj.n_iters) <= 1
+    assert rt.status == rj.status == "PRIMAL_DUAL_OPTIMAL", (rt.n_iters, rj.n_iters)
     assert rt.d_obj == pytest.approx(rj.d_obj, rel=1e-7)
     # gpp40's last maker is nearly singular (cond ~1e14, tests/test_torch_solver.py):
     # both checks land at a few 1e-6

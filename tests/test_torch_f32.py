@@ -14,12 +14,15 @@ float32.  The port follows those promotions (``utils.device.jdtype``):
   in both packages, and so are the dtypes after the first iteration and
   before the final check (y, b, dy, each S, L, the Schur matrix and its
   factor, the ratio test's step);
-* status equal, iterations +-1, d_obj within 1e-6 relative.  The
-  tolerance: both packages end on a float32 DIMACS evaluation of
-  b'y (a float32 ulp is 6e-8 relative), and their float32 phase A rounds
-  its sums in different orders; on these instances the two differ by at
-  most 1.1e-7 relative, and the JAX package's float32 runs differ from
-  its float64 runs by up to 1e-7;
+* status equal, d_obj within 1e-6 relative, the DIMACS grade within 10x
+  the JAX package's.  The tolerance: both packages end on a float32
+  DIMACS evaluation of b'y (a float32 ulp is 6e-8 relative), and their
+  float32 phase A rounds its sums in different orders; on these instances
+  the two differ by at most 1.1e-7 relative, and the JAX package's
+  float32 runs differ from its float64 runs by up to 1e-7.  The iteration
+  count is not held: a float32 trajectory's count moves with the host
+  BLAS's rounding (gpp took 21 iterations on one CPU with MKL's AVX-512
+  path at one thread, 19 at six threads or on its AVX2 path; JAX 19);
 * every combination of float32 with another option runs in the JAX
   package's host loop, so it runs in the port and is held here:
   kkt_hp="on", cone_fp="dd" (below n = 512 the flag, and one DD cone
@@ -152,9 +155,9 @@ def f32_runs():
 @pytest.mark.parametrize("name", sorted(INSTANCES))
 def test_f32_host_loop_matches_jax(f32_runs, name):
     (js, jr, _, _), (ts, tr, _, _) = f32_runs[name]
-    assert tr.status == jr.status == "PRIMAL_DUAL_OPTIMAL"
-    assert abs(tr.n_iters - jr.n_iters) <= 1
+    assert tr.status == jr.status == "PRIMAL_DUAL_OPTIMAL", (tr.n_iters, jr.n_iters)
     assert tr.d_obj == pytest.approx(jr.d_obj, rel=D_OBJ_REL)
+    assert np.max(np.abs(tr.dimacs)) <= 10.0 * np.max(np.abs(jr.dimacs))
     assert tr.stats["fused"] is False
     assert ts.ipm.dtype == torch.float32
 

@@ -223,11 +223,16 @@ def test_chol_primitives():
     assert not bool(okt) and bool(torch.isnan(Lt[1]).all())
     assert bool(torch.isfinite(Lt[0]).all())
     # use_dd at a single block of n = 512: the double-single inverse from
-    # the f64 factor (ops.ddchol), bit for bit the JAX package's
-    L512 = np.linalg.cholesky(_spd(rng, 512))
+    # the f64 factor (ops.ddchol).  Its diagonal-block inverses are f64
+    # triangular solves, torch's (MKL) and XLA's, which round differently
+    # on some CPUs; each is backward stable, so the two inverses lie within
+    # n u64 cond(S) of each other (tests/test_torch_ddchol.py holds the rest
+    # of the route bit for bit)
+    S512 = _spd(rng, 512)
+    L512 = np.linalg.cholesky(S512)
     u_dd = tchol.chol_inverse(torch.as_tensor(L512), use_dd=True)
-    assert np.array_equal(u_dd.numpy(), np.asarray(jchol.chol_inverse(jnp.asarray(L512),
-                                                                     use_dd=True)))
+    u_jax = jchol.chol_inverse(jnp.asarray(L512), use_dd=True)
+    assert _rel(u_dd, u_jax) <= 512 * 2.0 ** -53 * np.linalg.cond(S512[0])
     assert _rel(u_dd, tchol.chol_inverse(torch.as_tensor(L512))) < 1e-10
 
 

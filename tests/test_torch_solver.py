@@ -314,6 +314,68 @@ def test_kkt_hp_auto_is_off():
     assert ipm.cones.kkt_hp is True and ipm.cones.dual_hp is False
 
 
+@pytest.mark.parametrize("field", ["kkt_dd_threshold", "cone_dd_threshold",
+                                   "kkt_mp_threshold", "kkt_hp_threshold"])
+def test_size_thresholds_of_the_tpu_tiers_are_gone(field):
+    """The JAX package's size gates of its TPU tiers decide nothing on the
+    port, which has no such fields."""
+    with pytest.raises(TypeError):
+        Params(**{field: 768})
+
+
+class _Forbidden(RuntimeError):
+    pass
+
+
+@pytest.fixture(scope="module")
+def maxcut768():
+    """One block of n = 768 and m = 768: at the JAX package's thresholds of
+    the DD cone factor and the DD Schur factor (768 each)."""
+    return TProblem.from_sdpa(tsyn.maxcut_sdpa(n=768, seed=0))
+
+
+@pytest.mark.parametrize("fused", [False, "auto"], ids=["host", "fused"])
+@pytest.mark.parametrize("option,f64,on", [("cone_fp", "off", "dd"), ("kkt_fp", "xla", "dd"),
+                                           ("kkt_mp", "off", "on")])
+def test_auto_is_the_f64_path(maxcut768, option, f64, on, fused, monkeypatch):
+    """An option's "auto" solves bit for bit as its f64 setting, on the host
+    loop and on the fused driver ("iter" at m = 768), and neither runs a DD
+    factor, an Ozaki product or the mixed-precision refinement (each made to
+    raise here); the setting that turns the tier on reaches it.  Four
+    iterations: the tiers act from the first."""
+    from hdsdp_tpu_torch.ops import cg, ddchol, hpmm
+
+    calls = []
+
+    def forbid(name):
+        def f(*a, **k):
+            calls.append(name)
+            raise _Forbidden(name)
+        return f
+
+    for mod, name in ((ddchol, "factor"), (hpmm, "hpmm"), (cg, "refine_solve")):
+        monkeypatch.setattr(mod, name, forbid(name))
+    over = dict(device="cpu", verbose=False, fused=fused, max_iter=4)
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        runs = [TSolver(maxcut768, **over, **{option: v}).optimize() for v in ("auto", f64)]
+        assert not calls
+        acts = (option, fused) in {("cone_fp", False), ("cone_fp", "auto"), ("kkt_fp", False),
+                                   ("kkt_mp", "auto")}
+        if acts:
+            with pytest.raises(_Forbidden):
+                TSolver(maxcut768, **over, **{option: on}).optimize()
+            assert calls
+    finally:
+        torch.set_num_threads(n_threads)
+    a, b = runs
+    assert a.stats["fused"] == b.stats["fused"] == ("iter" if fused else False)
+    assert (a.status, a.n_iters, a.d_obj, a.p_obj) == (b.status, b.n_iters, b.d_obj, b.p_obj)
+    np.testing.assert_array_equal(a.y, b.y)
+    np.testing.assert_array_equal(a.dimacs, b.dimacs)
+
+
 @pytest.mark.cuda
 def test_small_solve_on_card_matches_host():
     if not torch.cuda.is_available():
