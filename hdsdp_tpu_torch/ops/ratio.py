@@ -26,6 +26,20 @@ every order measured from 256 to 5000, and 0.10 for a fleet of 8 at
 1000.  So one form serves every order and fleet size, and a
 fleet member takes its solo solve's path.
 
+A fixed-depth test issues ~20 small vector operations a step beside its
+three products, so on CUDA the host's launches, not the device, set its
+pace.  There each step's vector work replays one captured CUDA graph
+(``_static_basis``) over buffers that every test of the same (device,
+batch, n, dtype, depth) reuses, O(k n) of them, in the fixed-depth and the
+adaptive form alike; the products run eagerly on this test's L^{-1} and
+-dS, whose addresses change from test to test.  A thread captures every
+key on one side stream into one memory pool, which keeps reserved the
+side stream's cuBLAS workspace (32 MiB on an H100) and the graphs'
+temporaries, once for the thread and not per key.  Counters
+``ratio_graph_captures`` (one per captured graph) and
+``ratio_graph_replays`` (one per replay).  On the CPU every test
+allocates fresh buffers and launches each operation.
+
 On a non-finite matrix ``torch.linalg.eigh``/``eigvalsh`` raise where
 ``jnp.linalg.eigh`` returns NaN pairs; ``nan_safe=True`` gives the JAX
 behaviour (the fused IPM bodies run on through a failed Schur factor, as
@@ -34,6 +48,8 @@ their ``info``.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -70,11 +86,16 @@ def exact_ratio_test(L: torch.Tensor, dS: torch.Tensor, nan_safe: bool = False) 
 
 def _gemv_matvec(Linv, dSneg):
     """x -> Linv dSneg Linv^T x by three matrix-vector products, where
-    Linv = L^{-1} and dSneg = -dS."""
+    Linv = L^{-1} and dSneg = -dS; with ``out`` the last product writes
+    into it."""
     LinvT = Linv.mT
 
-    def mv(x):
-        return (Linv @ (dSneg @ (LinvT @ x[..., None])))[..., 0]
+    def mv(x, out=None):
+        y = dSneg @ (LinvT @ x[..., None])
+        if out is None:
+            return (Linv @ y)[..., 0]
+        torch.matmul(Linv, y, out=out[..., None])
+        return out
 
     return mv
 
@@ -82,8 +103,13 @@ def _gemv_matvec(Linv, dSneg):
 def _lanczos_step(mv, V, T, i):
     """One reorthogonalized Lanczos step of the operator ``mv``: fills
     T[.., i, i], T[.., i+1, i], T[.., i, i+1] and V[.., i+1, :] in place."""
+    _lanczos_update(mv(V[..., i, :]), V, T, i)
+
+
+def _lanczos_update(w, V, T, i):
+    """Step i of the Lanczos after its product w = mv(V[.., i, :]), which
+    it reads and does not write."""
     vi = V[..., i, :]
-    w = mv(vi)
     if i > 0:
         w = w - T[..., i, i - 1][..., None] * V[..., i - 1, :]
     alpha = torch.sum(w * vi, dim=-1)
@@ -129,23 +155,26 @@ def _bound_from_pairs(mv, Vk, w_eigs, Y):
     return step, Mz1
 
 
-def _start_basis(v0, k):
-    batch = v0.shape[:-1]
-    n = v0.shape[-1]
-    V = torch.zeros(batch + (k + 1, n), dtype=v0.dtype, device=v0.device)
+def _start_basis(v0, V, T):
+    """Zero the basis V and the tridiagonal T, and put v0 normalised in
+    V's first row."""
+    V.zero_()
+    T.zero_()
     V[..., 0, :] = v0 / torch.linalg.vector_norm(v0, dim=-1, keepdim=True)
-    T = torch.zeros(batch + (k + 1, k + 1), dtype=v0.dtype, device=v0.device)
-    return V, T
 
 
 def lanczos_ratio_test(mv, v0, krylov: int = 30, nan_safe: bool = False):
     """Fixed-depth batched Lanczos bound on the max step of the operator
     ``mv`` (conservative, like the reference).  Returns (steps [...], warm
-    start for the next call)."""
-    k = min(krylov, v0.shape[-1])
-    V, T = _start_basis(v0, k)
+    start for the next call).  On CUDA ``mv(x, out=w)`` has to write its
+    product into w, as ``_gemv_matvec``'s does."""
+    return _lanczos_fixed(mv, v0, min(krylov, v0.shape[-1]), nan_safe, _basis(v0))
+
+
+def _lanczos_fixed(mv, v0, k: int, nan_safe: bool, basis):
+    V, T, step = basis(mv, v0, k)
     for i in range(k):
-        _lanczos_step(mv, V, T, i)
+        step(i)
     w_eigs, Y = _eig(torch.linalg.eigh, T[..., :k, :k], nan_safe)
     return _bound_from_pairs(mv, V[..., :k, :], w_eigs, Y)
 
@@ -155,7 +184,9 @@ def lanczos_ratio_test_adaptive(mv, v0, krylov: int = 30, check_freq: int = 3,
     """Early-exit Lanczos bound (ref hdsdp_lanczos.c:186-292): the same
     recurrence, stopped as soon as every matrix in the batch has a
     converged top Ritz pair, |beta_k * y1[k]| < 1e-4, checked every
-    ``check_freq`` steps and at the last step (one host read each).
+    ``check_freq`` steps and at the last step (one host read each).  Its
+    steps are those of ``lanczos_ratio_test`` at the same depth, graphs
+    and buffers included, so on CUDA ``mv`` has to take ``out=`` here too.
 
     The Ritz pairs are those of the leading block of T built so far.  The
     JAX package keeps a fixed shape for its compiler instead: it pads the
@@ -164,11 +195,15 @@ def lanczos_ratio_test_adaptive(mv, v0, krylov: int = 30, check_freq: int = 3,
     always: on the padded matrix it returned top pairs wrong by percents
     (step bounds up to 8 % ABOVE the exact step at n = 3375, which stalled
     phase B) or gave up (n = 1000)."""
-    k = min(krylov, v0.shape[-1])
-    V, T = _start_basis(v0, k)
+    return _lanczos_adaptive(mv, v0, min(krylov, v0.shape[-1]), check_freq, nan_safe,
+                             _basis(v0))
+
+
+def _lanczos_adaptive(mv, v0, k: int, check_freq: int, nan_safe: bool, basis):
+    V, T, step = basis(mv, v0, k)
     i = 0
     while i < k:
-        _lanczos_step(mv, V, T, i)
+        step(i)
         i += 1
         if i % check_freq == 0 or i >= k:
             w_eigs, Y = _eig(torch.linalg.eigh, T[..., :i, :i], nan_safe)
@@ -177,6 +212,147 @@ def lanczos_ratio_test_adaptive(mv, v0, krylov: int = 30, check_freq: int = 3,
             if bool(torch.max(resi) < 1e-04):  # host sync
                 break
     return _bound_from_pairs(mv, V[..., :i, :], w_eigs, Y)
+
+
+def _basis(v0):
+    """How a Lanczos from v0 gets its buffers and runs its steps: the
+    static buffers and step graphs on CUDA, fresh buffers elsewhere."""
+    return _static_basis if v0.is_cuda else _fresh_basis
+
+
+def _fresh_basis(mv, v0, k: int):
+    """(V, T, step) for a Lanczos of ``mv`` from v0 at depth k in new
+    buffers: the basis, the tridiagonal, and step(i), which runs step i
+    operation by operation."""
+    V = v0.new_empty(v0.shape[:-1] + (k + 1, v0.shape[-1]))
+    T = v0.new_empty(v0.shape[:-1] + (k + 1, k + 1))
+    _start_basis(v0, V, T)
+    return V, T, lambda i: _lanczos_step(mv, V, T, i)
+
+
+def _static_basis(mv, v0, k: int):
+    """``_fresh_basis`` over the static buffers of v0's key: step i writes
+    its product into w by ``mv(x, out=w)``, then on CUDA replays the
+    step's graph, captured at the key's first test, and elsewhere (the
+    tests alone) launches the same operations.  Either way the operations,
+    their order and their shapes are the fresh loop's, and so are the
+    bits."""
+    buf = _static(v0, k)
+    if v0.is_cuda and buf.graphs is None:
+        buf.capture(*_capturer(v0.device))
+    V, T, w = buf.V, buf.T, buf.w
+    _start_basis(v0, V, T)
+
+    def step(i):
+        mv(V[..., i, :], out=w)
+        if buf.graphs is None:
+            _lanczos_update(w, V, T, i)
+        else:
+            buf.graphs[i].replay()
+            profile.count("ratio_graph_replays")
+
+    return V, T, step
+
+
+# keys (device, batch, n, dtype, depth) whose buffers and graphs a thread
+# keeps, so that a key is captured once and not once a solve; the oldest
+# goes first.  A benchmark cell uses one or two (PERF.md section 6).
+STATIC_KEYS = 8
+
+
+class _ThreadStatic(threading.local):
+    """What one thread keeps between its Lanczos tests: the static buffers
+    of each key, and per device the side stream that captures the graphs
+    and the one memory pool that all its graphs share.  Each thread has
+    its own, so tests in two threads share nothing."""
+
+    def __init__(self):
+        self.keys = {}
+        self.capturers = {}
+
+
+_LOCAL = _ThreadStatic()
+
+
+def _capturer(device):
+    """(side stream, graph pool) of this thread on ``device``."""
+    got = _LOCAL.capturers.get(device)
+    if got is None:
+        got = _LOCAL.capturers[device] = (torch.cuda.Stream(device),
+                                          torch.cuda.graph_pool_handle())
+    return got
+
+
+class _StaticLanczos:
+    """The buffers that every Lanczos test of one key reuses: the basis
+    V [..., k+1, n], the tridiagonal T [..., k+1, k+1] and the step's
+    product w [..., n], O(k n) in all; on CUDA, once captured, one graph
+    per step index i that replays ``_lanczos_update(w, V, T, i)`` over
+    them.  Nothing a test returns lies in them: the next test overwrites
+    them."""
+
+    def __init__(self, batch, n: int, k: int, dtype, device):
+        self.V = torch.zeros(batch + (k + 1, n), dtype=dtype, device=device)
+        self.T = torch.zeros(batch + (k + 1, k + 1), dtype=dtype, device=device)
+        self.w = torch.zeros(batch + (n,), dtype=dtype, device=device)
+        self.graphs = None
+
+    def capture(self, side, pool):
+        """Capture the k step graphs on the thread's side stream into its
+        pool, after one eager pass on the current stream that sets up what
+        the operations set up lazily.  Both run over whatever the buffers
+        hold: every test resets them first.  The capture's error mode is
+        the thread's own, so that other threads may launch work meanwhile.
+
+        No graph's temporary outlives its capture, so graphs that share the
+        pool may replay in any order, as long as one at a time.  cuBLAS
+        keeps a workspace (32 MiB on an H100) for each stream it runs on;
+        the side stream's is made inside the pool by the capture's
+        first product, and dropped after the capture (cuBLAS's workspaces are
+        dropped all at once; the current stream's is made again at its
+        next product): the pool keeps its memory reserved for the replays,
+        and the next key's capture makes the workspace again in that memory.
+        So the workspace is reserved once for the thread and not allocated
+        while the solver runs.  Dropping them all holds while no other
+        graph of the process that ran cuBLAS is still to be replayed: the
+        program captures no other."""
+        k = self.T.shape[-1] - 1
+        with torch.cuda.device(self.V.device):
+            for i in range(k):
+                _lanczos_update(self.w, self.V, self.T, i)
+            side.wait_stream(torch.cuda.current_stream())
+            graphs = []
+            with torch.cuda.stream(side):
+                try:
+                    for i in range(k):
+                        g = torch.cuda.CUDAGraph()
+                        g.capture_begin(pool=pool, capture_error_mode="thread_local")
+                        try:
+                            _lanczos_update(self.w, self.V, self.T, i)
+                        finally:
+                            g.capture_end()
+                        graphs.append(g)
+                        profile.count("ratio_graph_captures")
+                finally:
+                    torch._C._cuda_clearCublasWorkspaces()
+            torch.cuda.current_stream().wait_stream(side)
+        self.graphs = graphs
+
+
+def _static(v0, k: int) -> _StaticLanczos:
+    """This thread's static buffers of v0's key at depth k, made on first
+    use."""
+    keys = _LOCAL.keys
+    key = (v0.device, tuple(v0.shape[:-1]), v0.shape[-1], v0.dtype, k)
+    buf = keys.get(key)
+    if buf is not None:
+        return buf
+    if len(keys) >= STATIC_KEYS:
+        old = keys.pop(next(iter(keys)))
+        if old.graphs is not None:  # none of its replays may still be in flight
+            torch.cuda.synchronize(old.V.device)
+    buf = keys[key] = _StaticLanczos(v0.shape[:-1], v0.shape[-1], k, v0.dtype, v0.device)
+    return buf
 
 
 # exact-ratio threshold: below this dimension the batched eigh is used
